@@ -1,0 +1,1 @@
+"""Attention ops of the port: hand-written CUDA kernels and their plain versions."""
