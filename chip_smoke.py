@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (katib_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Phases, all of them on every run, each fatal on failure:
 
@@ -9,16 +9,26 @@ Phases, all of them on every run, each fatal on failure:
              (one nvcc per source, in parallel) and print the build seconds;
 2. kernels — hold K1 (fwd), K2 (dq) and K3 (dkv) against their plain PyTorch
              versions on the card: at the LM's shape (B=4, T=2048, H=16,
-             D=64, bf16, causal), at a ragged T, non-causal, in f32 and at the
-             other head dims, element by element (see TOL); and a small model
+             D=64, bf16, causal) with q, k, v as slices of one [B, T, 3, H,
+             D] tensor as the model passes them, at ragged T (against both
+             the 64- and the 128-row tiles), non-causal, at softmax scales 0
+             and -0.2, in f32 and at head dims 32 and 128, element by element
+             (see TOL); and a small model
              on the card against the same model on the CPU;
 3. e2e     — run katib_tpu_torch/examples/lm-h100.json (3 TPE trials of the
-             full-width transformer LM, 10 AdamW steps each) through the
-             port's controller on cuda:0, with the launch counters set to 0
-             just before and read just after;
-4. times   — each kernel, its plain version and scaled_dot_product_attention
-             (a yardstick the port never calls) at the LM's shape with CUDA
-             events; the train step's ms and tokens/s; a profiler breakdown
+             full-width transformer LM, 10 AdamW steps each, the suggester
+             seeded from --seed, default 0) through the port's controller on
+             cuda:0, with the launch and route counters set to 0 just before
+             and read just after: every trial must succeed with a loss that
+             falls between its two reports, and every bf16 K1 and K3 launch
+             must have taken the sm90 (wgmma/TMA) route; then train the same
+             LM 10 steps on the sm90 route and on the mma kernels and hold
+             the two loss curves together (ROUTE_TOL);
+4. times   — each kernel, its plain version, the mma.sync design of K1
+             and K3 that f32 still takes (the "mma" route, called directly) and
+             scaled_dot_product_attention (a yardstick the port never calls)
+             at the LM's shape with CUDA events, each the median of 5
+             repeats; the train step's ms and tokens/s; a profiler breakdown
              of two train steps.
 
 The last lines are the kernels' JSON record, the card's name and power
@@ -55,11 +65,13 @@ PEAK_BYTES = 3.35e12
 # f32 outputs (the lse, and every output of the f32 instances): full f32 on
 #   both sides, summed in different orders.
 TOL = {"bfloat16": (0.1, 2.0 ** -7), "float32": (1e-3, 1e-5)}  # (ATOL, RTOL)
-REPLACES = {
-    "fwd": ("katib_tpu_torch/ops/csrc/flash_fwd.cu", "katib_tpu/ops/flash_attention.py:74"),
+REPLACES = {  # the source of the route the main path takes (bf16, D 64)
+    "fwd": ("katib_tpu_torch/ops/csrc/flash_fwd_sm90.cu", "katib_tpu/ops/flash_attention.py:74"),
     "dq": ("katib_tpu_torch/ops/csrc/flash_bwd.cu", "katib_tpu/ops/flash_attention.py:199"),
-    "dkv": ("katib_tpu_torch/ops/csrc/flash_bwd.cu", "katib_tpu/ops/flash_attention.py:232"),
+    "dkv": ("katib_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu", "katib_tpu/ops/flash_attention.py:232"),
 }
+REPEATS = 5  # timings are the median of this many cuda_ms runs
+ROUTE_TOL = 0.05  # nats: loss difference of the two routes over 10 steps at lr 1e-3, seed 0 (see route_agreement)
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out")  # git-ignored
 
 
@@ -92,8 +104,12 @@ def phase_build(torch) -> None:
             f"({'cached' if secs is None else f'{secs:.1f}s nvcc'})")
         report = path.with_name(path.name + ".log")
         if report.exists():
-            for line in ptxas_summary(report.read_text()):
+            text = report.read_text()
+            for line in ptxas_summary(text):
                 log(f"  ptxas: {line}")
+            for line in text.splitlines():  # e.g. wgmma serialised (C75xx): a kernel lost its overlap
+                if "Performance Loss" in line:
+                    log(f"  ptxas WARNING: {line.split(':', 1)[-1].strip()}")
 
 
 def ptxas_summary(text: str):
@@ -102,9 +118,9 @@ def ptxas_summary(text: str):
 
     name = None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\w*?katib_flash\d+(\w+?)I(13__nv_bfloat16|f)Li(\d+)E", line)
-        if m:
-            name, spill = f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}, D={m.group(3)}>", ""
+        m = re.search(r"Compiling entry function '_Z\w*?\d+(flash_\w+?_kernel)I(13__nv_bfloat16|f)?Li(\d+)E", line)
+        if m:  # the sm90 kernels are templated on D alone: bf16
+            name, spill = f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}, D={m.group(3)}>", ""
         elif "spill" in line and name:
             spill = line.split(":", 1)[-1].strip()
         elif "Used" in line and "registers" in line and name:
@@ -116,30 +132,38 @@ def ptxas_summary(text: str):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _inputs(torch, b, t, h, d, dtype, seed=0):
+def _inputs(torch, b, t, h, d, dtype, seed=0, fused=False):
+    """q, k, v, do. ``fused``: q, k, v are the strided slices [:, :, i] of
+    one [B, T, 3, H, D] tensor, as the model's fused projection gives them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if fused:
+        qkv = torch.randn((b, t, 3, h, d), generator=g, device="cuda", dtype=torch.float32).to(dtype)
+        do = torch.randn((b, t, h, d), generator=g, device="cuda", dtype=torch.float32).to(dtype)
+        return [qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do]
     return [torch.randn((b, t, h, d), generator=g, device="cuda", dtype=torch.float32).to(dtype)
             for _ in range(4)]
 
 
 def _compare(torch, got, ref):
-    """(max |got - ref|, the ATOL this pair needs, its limit) under TOL."""
+    """(max |got - ref|, the ATOL this pair needs, its limit) under TOL. An
+    all-zero reference needs ATOL 0 if got is exact and inf otherwise."""
     check(bool(torch.isfinite(got).all()), "kernel output has non-finite values")
     atol, rtol = TOL[str(ref.dtype).replace("torch.", "")]
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
-    need = float((err - rtol * ref.abs()).max() / ref.pow(2).mean().sqrt())
+    excess, rms = float((err - rtol * ref.abs()).max()), float(ref.pow(2).mean().sqrt())
+    need = excess / rms if rms > 0 else (0.0 if excess <= 0 else math.inf)
     return float(err.max()), need, atol
 
 
-def compare_case(torch, b, t, h, d, dtype, causal):
+def compare_case(torch, b, t, h, d, dtype, causal, fused=False, scale=None):
     """K1, K2 and K3 against their plain versions on one set of inputs, output
     by output; logs every comparison, then raises if any exceeds TOL. Returns
-    each kernel's max abs error."""
+    each kernel's max abs error. ``scale`` defaults to 1/sqrt(d)."""
     from katib_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = _inputs(torch, b, t, h, d, dtype)
-    scale = 1.0 / math.sqrt(d)
+    q, k, v, do = _inputs(torch, b, t, h, d, dtype, fused=fused)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     o_ref, lse_ref = fa.fwd_plain(q, k, v, causal, scale)
     delta = fa.attention_delta(o_ref, do)
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
@@ -150,7 +174,9 @@ def compare_case(torch, b, t, h, d, dtype, causal):
              "dq": {"dq": (dq, fa.bwd_dq_plain(q, k, v, do, lse_ref, delta, causal, scale))},
              "dkv": {"dk": (dk, dk_ref), "dv": (dv, dv_ref)}}
     torch.cuda.synchronize()
-    label = f"B={b} T={t} H={h} D={d} {str(dtype).replace('torch.', '')} causal={causal}"
+    routes = "/".join(fa.route(name, dtype, d) for name in pairs)
+    label = (f"B={b} T={t} H={h} D={d} {str(dtype).replace('torch.', '')} causal={causal}"
+             f"{' qkv-slices' if fused else ''} scale={scale:.4g} routes={routes}")
     errs, failed = {}, []
     for name, outputs in pairs.items():
         for out, (got, ref) in outputs.items():
@@ -158,23 +184,30 @@ def compare_case(torch, b, t, h, d, dtype, causal):
             errs[name] = max(errs.get(name, 0.0), err)
             log(f"kernels: {name:3s} {out:3s} {label}: max_abs_err={err:.3e}, needs ATOL {need:.4f} "
                 f"(limit {atol:g}) {'ok' if need <= atol else 'FAIL'}")
-            if need > atol:
+            if not need <= atol:
                 failed.append(f"{name}/{out}")
     check(not failed, f"{', '.join(failed)} disagree with the plain versions at {label}")
     return errs
 
 
 def phase_kernels(torch, record) -> None:
-    main = compare_case(torch, **MAIN, dtype=torch.bfloat16, causal=True)
+    main = compare_case(torch, **MAIN, dtype=torch.bfloat16, causal=True, fused=True)  # as the model calls it
     for name, err in main.items():
         record[name]["max_abs_err"] = err
+    compare_case(torch, **MAIN, dtype=torch.bfloat16, causal=True)  # contiguous operands
+    compare_case(torch, 2, 2000, 4, 64, torch.bfloat16, True, fused=True)  # ragged against 128-row tiles
+    compare_case(torch, 2, 100, 4, 64, torch.bfloat16, True)      # shorter than one 128-row tile
     compare_case(torch, 2, 1000, 4, 64, torch.bfloat16, True)     # ragged T
+    compare_case(torch, 2, 300, 4, 64, torch.bfloat16, True, scale=-0.2)  # any softmax scale
+    compare_case(torch, 2, 300, 4, 64, torch.bfloat16, True, scale=0.0)
     compare_case(torch, 2, 2048, 4, 64, torch.bfloat16, False)    # non-causal
     compare_case(torch, 1, 77, 3, 64, torch.bfloat16, False)      # one ragged tile
     compare_case(torch, 2, 200, 4, 64, torch.float32, True)       # f32, full FMA
     compare_case(torch, 1, 130, 2, 32, torch.float32, False)
     compare_case(torch, 2, 300, 4, 32, torch.bfloat16, True)      # other head dims
+    compare_case(torch, 2, 1000, 4, 32, torch.bfloat16, False)
     compare_case(torch, 2, 300, 4, 128, torch.bfloat16, True)
+    compare_case(torch, 1, 2048, 8, 128, torch.bfloat16, True)
     compare_case(torch, 1, 100, 2, 128, torch.float32, True)
     model_check(torch)
 
@@ -207,22 +240,25 @@ def model_check(torch) -> None:
 # phase 3: the port's main path
 # ---------------------------------------------------------------------------
 
-def lm_spec():
-    """The main path's spec and its one-value (fixed) assignments."""
-    from katib_tpu_torch.api.spec import ExperimentSpec
+def lm_spec(seed=None):
+    """The main path's spec and its one-value (fixed) assignments; with a
+    seed, the suggester draws from it (the spec's ``random_state``)."""
+    from katib_tpu_torch.api.spec import AlgorithmSetting, ExperimentSpec
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "katib_tpu_torch", "examples", "lm-h100.json")
     with open(path) as f:
         spec = ExperimentSpec.from_json(f.read())
+    if seed is not None:
+        spec.algorithm.algorithm_settings.append(AlgorithmSetting("random_state", str(seed)))
     return spec, {p.name: p.feasible_space.list[0] for p in spec.parameters if p.feasible_space.list}
 
 
-def phase_e2e(torch, record) -> None:
+def phase_e2e(torch, record, seed) -> None:
     from katib_tpu_torch.api.status import TrialCondition
     from katib_tpu_torch.controller.experiment import ExperimentController
     from katib_tpu_torch.ops import flash_attention as fa
 
-    spec, fixed = lm_spec()
+    spec, fixed = lm_spec(seed)
     trials = spec.max_trial_count
     per_kernel = int(fixed["num_layers"]) * int(fixed["num_steps"]) * trials
 
@@ -233,14 +269,15 @@ def phase_e2e(torch, record) -> None:
     ctrl = ExperimentController(root_dir=root)
     try:
         ctrl.create_experiment(spec)
-        for key in fa.LAUNCHES:
-            fa.LAUNCHES[key] = 0
+        for counts in (fa.LAUNCHES, fa.ROUTES):
+            for key in counts:
+                counts[key] = 0
         t0 = time.perf_counter()
         exp = ctrl.run(spec.name, timeout=900)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(fa.LAUNCHES)
-        log(f"e2e: {spec.name}: {exp.status.condition.value} ({exp.status.reason.value}) in {wall:.1f}s; "
+        launches, routes = dict(fa.LAUNCHES), dict(fa.ROUTES)
+        log(f"e2e: {spec.name} (suggester seed {seed}): {exp.status.condition.value} ({exp.status.reason.value}) in {wall:.1f}s; "
             f"trials succeeded {exp.status.trials_succeeded}/{exp.status.trials}")
         losses = {}
         for trial in ctrl.list_trials(spec.name):
@@ -261,16 +298,67 @@ def phase_e2e(torch, record) -> None:
             f"loss={best.observation.metric('loss').min}")
         log(f"e2e: launches {launches}, expected {per_kernel} each "
             f"(num_layers x num_steps x trials = {fixed['num_layers']} x {fixed['num_steps']} x {trials})")
+        log(f"e2e: routes {routes}")
         for name in fa.LAUNCHES:
             record[name]["launches"] = launches[name]
             check(launches[name] == per_kernel, f"kernel {name} launched {launches[name]} times, expected {per_kernel}")
+        for name in fa.SM90_KERNELS:  # bf16 at D 64: every launch on the wgmma/TMA route
+            check(routes[f"{name}.sm90"] == per_kernel,
+                  f"kernel {name}: {routes[f'{name}.sm90']} of {per_kernel} launches took the sm90 route")
     finally:
         ctrl.close()
+    route_agreement(torch, fixed)
+
+
+def route_agreement(torch, fixed, lr=1e-3, steps=10) -> None:
+    """The LM's losses over its first `steps` steps on the main path's route
+    and with K1 and K3 forced onto the mma kernels, from the experiment's
+    weights and batch (seed 0). The routes round P and dS to bf16 in the
+    same places and sum in different orders. Ten AdamW steps amplify such
+    rounding differences, the more so the higher the learning rate
+    (katib_tpu_torch.tools.route_divergence measures it): at lr 1e-3 on
+    these weights one bf16 unit in one weight moves either route's curve by
+    about 0.015 and the routes differ by about 0.006, while at lr 4e-3 to
+    1e-2 rounding-size changes move a route by tenths of a nat to 2 nats.
+    So the check is made here, where it is tight: ROUTE_TOL is about 3x
+    the one-unit gap and a tenth of one step's change."""
+    import numpy as np
+
+    from katib_tpu_torch.models.transformer import TransformerConfig
+    from katib_tpu_torch.ops import flash_attention as fa
+    from katib_tpu_torch.parallel.train import make_lm_train_step
+
+    vocab, seq, batch = int(fixed["vocab_size"]), int(fixed["seq_len"]), int(fixed["batch_size"])
+    cfg = TransformerConfig(vocab_size=vocab, embed_dim=int(fixed["embed_dim"]),
+                            num_layers=int(fixed["num_layers"]), num_heads=int(fixed["num_heads"]),
+                            max_seq_len=seq)
+    data = np.random.default_rng(0).integers(0, vocab, size=(batch, seq + 1), dtype=np.int32)
+    curves = {}
+    for design in ("sm90", "mma"):
+        with fa.forced_route(design):
+            model, _, step_fn, put_batch = make_lm_train_step(cfg, torch.device("cuda:0"), lr)
+            tokens, targets, positions = put_batch(data[:, :-1], data[:, 1:])
+            curves[design] = [float(step_fn(tokens, targets, positions)) for _ in range(steps)]
+        del model, step_fn
+        torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(curves["sm90"], curves["mma"]))
+    log(f"e2e: LM at lr {lr:g}, {steps} steps, sm90 route {[round(x, 4) for x in curves['sm90']]}; "
+        f"K1/K3 on the mma kernels {[round(x, 4) for x in curves['mma']]}; "
+        f"largest difference {diff:.4f} (limit {ROUTE_TOL})")
+    check(diff <= ROUTE_TOL, f"the sm90 and mma routes train apart: {diff:.4f} > {ROUTE_TOL}")
+    check(curves["sm90"][-1] < curves["sm90"][0], f"the LM did not learn at lr {lr:g}: {curves['sm90']}")
 
 
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
+
+def median_ms(torch, fn, **kw) -> float:
+    """The median of REPEATS cuda_ms runs."""
+    import statistics
+
+    return statistics.median(cuda_ms(torch, fn, **kw) for _ in range(REPEATS))
+
 
 def cuda_ms(torch, fn, iters=20, warmup=3) -> float:
     for _ in range(warmup):
@@ -304,7 +392,7 @@ def phase_times(torch, record) -> None:
     from katib_tpu_torch.ops import flash_attention as fa
 
     b, t, h, d = MAIN["b"], MAIN["t"], MAIN["h"], MAIN["d"]
-    q, k, v, do = _inputs(torch, b, t, h, d, torch.bfloat16)
+    q, k, v, do = _inputs(torch, b, t, h, d, torch.bfloat16, fused=True)  # the model's operands
     scale = 1.0 / math.sqrt(d)
     o, lse = fa.flash_fwd(q, k, v, True, scale)
     delta = fa.attention_delta(o, do)
@@ -316,16 +404,26 @@ def phase_times(torch, record) -> None:
         "dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
                 lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta, True, scale), 4, 4, 2, 2),
     }
+    mma_design = {  # the mma route's bf16 kernels, timed beside the route the main path takes
+        "fwd": lambda: fa._fwd_cuda("mma", q, k, v, True, scale),
+        "dkv": lambda: fa._dkv_cuda("mma", q, k, v, do, lse, delta, True, scale),
+    }
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    sdpa_fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     for name, (kernel, plain, products, reads, writes, rows) in plan.items():
-        ms = cuda_ms(torch, kernel)
+        ms = median_ms(torch, kernel)
         plain_ms = cuda_ms(torch, plain, iters=5, warmup=1)
         bound_ms, bound_by, flops = bound(b, t, h, d, "bfloat16", True, products, reads, writes, rows)
         record[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=sdpa_fwd if name == "fwd" else None)
-        log(f"times: {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
-            f"{flops / ms / 1e9:.1f} TFLOP/s = {100 * bound_ms / ms:.1f}% of bound)")
+        old = ""
+        if name in mma_design:
+            mma_ms = median_ms(torch, mma_design[name])
+            old = f", mma route {mma_ms:.4f} ms = {100 * bound_ms / mma_ms:.1f}% of bound"
+        log(f"times: {name} ({fa.route(name, q.dtype, d)} route): {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by}, {flops / ms / 1e9:.1f} TFLOP/s = "
+            f"{100 * bound_ms / ms:.1f}% of bound{old})"
+            + (f"; scaled_dot_product_attention fwd {sdpa_fwd:.4f} ms" if name == "fwd" else ""))
 
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (qt, kt, vt))
     dot = do.transpose(1, 2)
@@ -340,9 +438,13 @@ def phase_times(torch, record) -> None:
         out = fa.flash_attention(qf, kf, vf, causal=True)
         torch.autograd.grad(out, (qf, kf, vf), do)
 
+    flash_both, sdpa_both = median_ms(torch, flash_step), median_ms(torch, sdpa_step)
     log(f"times: fwd+bwd at B={b} T={t} H={h} D={d} bf16 causal: flash kernels "
-        f"{cuda_ms(torch, flash_step):.4f} ms, scaled_dot_product_attention {cuda_ms(torch, sdpa_step):.4f} ms "
+        f"{flash_both:.4f} ms, scaled_dot_product_attention {sdpa_both:.4f} ms "
         f"(yardstick; the port never calls it)")
+    log(f"times: backward alone (fwd+bwd - fwd): flash kernels {flash_both - record['fwd']['ms']:.4f} ms "
+        f"(dq {record['dq']['ms']:.4f} + dkv {record['dkv']['ms']:.4f} ms, and the delta reduction), "
+        f"scaled_dot_product_attention {sdpa_both - sdpa_fwd:.4f} ms: the yardstick for K2 + K3")
     train_step_times(torch, lm_spec()[1])
 
 
@@ -396,7 +498,12 @@ def device_line() -> str:
         return f"nvidia-smi unavailable ({e})"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0, help="the e2e experiment's suggester seed")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -419,7 +526,7 @@ def main() -> int:
                      "bound_by": None, "library_ms": None}
               for name, (src, rep) in REPLACES.items()}
     phases = {"build": lambda: phase_build(torch), "kernels": lambda: phase_kernels(torch, record),
-              "e2e": lambda: phase_e2e(torch, record), "times": lambda: phase_times(torch, record)}
+              "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record)}
     try:
         for phase, run in phases.items():
             t0 = time.perf_counter()

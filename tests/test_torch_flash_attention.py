@@ -55,6 +55,7 @@ _CPU_RUN = textwrap.dedent(
         "leaked": sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "katib_tpu", "triton")),
         "loaded": sorted(_build._loaded), "launches": flash_attention.LAUNCHES,
+        "routes": flash_attention.ROUTES,
     }), flush=True)
     os._exit(0)  # the result is out; skip the interpreter's teardown
     """
@@ -240,10 +241,10 @@ def test_delta_is_rowsum_of_o_times_do():
 
 
 def test_cpu_tensors_launch_no_kernel():
-    before = dict(fa.LAUNCHES)
+    before, routes = dict(fa.LAUNCHES), dict(fa.ROUTES)
     q, k, v = (_port(x, requires_grad=True) for x in _arrays(t=32, n=3))
     fa.flash_attention(q, k, v, causal=True).sum().backward()
-    assert fa.LAUNCHES == before
+    assert fa.LAUNCHES == before and fa.ROUTES == routes
     assert not _build._loaded
 
 
@@ -276,13 +277,19 @@ def test_strided_views_reach_the_kernel_without_a_copy():
     assert fa._operand(odd).is_contiguous()  # rows off a 16-byte boundary are copied
 
 
-def test_smoke_check_passes_bf16_rounding_and_fails_a_dropped_tile():
+@pytest.fixture(scope="module")
+def smoke():
+    """chip_smoke.py as a module (it imports torch only inside its phases)."""
+    loader = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(module)
+    return module
+
+
+def test_smoke_check_passes_bf16_rounding_and_fails_a_dropped_tile(smoke):
     """chip_smoke.py's kernel check, on the CPU: an O made as the bf16
     kernels make it (P rounded to bf16 before P V) passes, and an O with one
     64-key tile missing from the late rows fails, at B 1, T 1024, H 2, D 64."""
-    loader = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(loader)
-    loader.loader.exec_module(smoke)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn((1, 1024, 2, 64), generator=g).to(torch.bfloat16) for _ in range(3))
     o_ref, lse = fa.fwd_plain(q, k, v, True, 0.125)
@@ -295,6 +302,18 @@ def test_smoke_check_passes_bf16_rounding_and_fails_a_dropped_tile():
     assert need < atol / 2
     _, need, atol = smoke._compare(torch, dropped, o_ref)
     assert need > 10 * atol
+
+
+def test_smoke_check_holds_an_all_zero_reference_exactly(smoke):
+    """At softmax scale 0, dQ and dK are exactly zero: chip_smoke.py's check
+    then passes an exact result and fails any other, instead of 0/0."""
+    zero = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16)
+    _, need, atol = smoke._compare(torch, zero.clone(), zero)
+    assert need == 0.0 <= atol
+    off = zero.clone()
+    off[0, 0, 0, 0] = 2.0 ** -20
+    _, need, atol = smoke._compare(torch, off, zero)
+    assert need == math.inf and not need <= atol
 
 
 # -- the CUDA sources and their binding (compiled on the card only) ------------
@@ -329,6 +348,65 @@ def test_sources_target_sm90a_and_carry_notes():
     assert "::_fwd_kernel" in fwd and "Bound on this card" in fwd
     assert "::_bwd_dq_kernel" in bwd and "::_bwd_dkv_kernel" in bwd and "Bound on this card" in bwd
     assert "mma.sync.aligned.m16n8k16" in (CSRC / "flash_common.cuh").read_text()
+
+
+@pytest.mark.parametrize("head_dim", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_route_table(kernel, dtype, head_dim):
+    """The route follows dtype and head dim alone: bf16 K1 and K3 take the
+    wgmma/TMA kernels at every head dim; f32 (no TF32) and K2 stay on the
+    mma.sync/FMA kernels. Each route names an entry point of its own source."""
+    design = fa.route(kernel, dtype, head_dim)
+    want = "sm90" if dtype == torch.bfloat16 and kernel in ("fwd", "dkv") else "mma"
+    assert design == want
+    entry = fa._ENTRY[kernel, design]
+    assert entry.endswith("_sm90") == (design == "sm90")
+    source = fa._SOURCE[entry]
+    assert source in _build.SOURCES
+    assert re.search(r'extern "C" int ' + entry + r"\(", (CSRC / source).read_text())
+    assert f"{kernel}.{design}" in fa.ROUTES
+
+
+@pytest.mark.parametrize("design", ["mma", "sm90"])
+def test_forced_route_moves_k1_and_k3_only_and_restores(design):
+    """Inside forced_route, K1 and K3 take the forced design at every dtype
+    and head dim, K2 stays on mma, and the table comes back on exit, also
+    after an exception; an unknown design is refused."""
+    table = {(k, dt, d): fa.route(k, dt, d) for k in ("fwd", "dq", "dkv")
+             for dt in (torch.bfloat16, torch.float32) for d in fa.HEAD_DIMS}
+    with pytest.raises(KeyError):
+        with fa.forced_route(design):
+            for kernel, dtype, head_dim in table:
+                want = design if kernel in fa.SM90_KERNELS else "mma"
+                assert fa.route(kernel, dtype, head_dim) == want
+            raise KeyError("leave the block")
+    assert {key: fa.route(*key) for key in table} == table
+    with pytest.raises(ValueError):
+        with fa.forced_route("tf32"):
+            pass
+
+
+def _translation_unit(source):
+    """A source with the text of the headers it includes, one level deep at a time."""
+    text, seen = (CSRC / source).read_text(), set()
+    while True:
+        headers = set(re.findall(r'#include "(\w+\.cuh)"', text)) - seen
+        if not headers:
+            return text
+        seen |= headers
+        text += "".join((CSRC / h).read_text() for h in sorted(headers))
+
+
+@pytest.mark.parametrize("source,replaces", [("flash_fwd_sm90.cu", "::_fwd_kernel"),
+                                             ("flash_bwd_dkv_sm90.cu", "::_bwd_dkv_kernel")])
+def test_sm90_sources_carry_notes_and_use_wgmma_and_tma(source, replaces):
+    text = (CSRC / source).read_text()
+    assert replaces in text and "Bound on this card" in text and "Design:" in text
+    unit = _translation_unit(source)
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait", "mbarrier.arrive.expect_tx"):
+        assert ptx in unit, ptx
+    assert "cudaGetDriverEntryPoint" in unit and "__grid_constant__" in text  # no -lcuda needed
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -367,3 +445,4 @@ def test_port_run_imports_no_jax(cli_run):
 def test_cpu_run_builds_and_launches_no_kernel(cli_run):
     result = cli_run()
     assert result["loaded"] == [] and result["launches"] == {"fwd": 0, "dq": 0, "dkv": 0}
+    assert not any(result["routes"].values())
