@@ -6,26 +6,30 @@
 Phases, all of them on every run, each fatal on failure:
 
 1. build   — compile the flash-attention kernels from katib_tpu_torch/ops/csrc
-             (one nvcc per source, in parallel) and print the build seconds;
+             (one nvcc per source, in parallel), print the build seconds and
+             each kernel's registers and spills, and fail if ptxas
+             serialised the wgmma of any *_sm90.cu kernel;
 2. kernels — hold K1 (fwd), K2 (dq) and K3 (dkv) against their plain PyTorch
              versions on the card: at the LM's shape (B=4, T=2048, H=16,
              D=64, bf16, causal) with q, k, v as slices of one [B, T, 3, H,
              D] tensor as the model passes them, at ragged T (against both
              the 64- and the 128-row tiles), non-causal, at softmax scales 0
-             and -0.2, in f32 and at head dims 32 and 128, element by element
-             (see TOL); and a small model
-             on the card against the same model on the CPU;
+             and -0.2, in f32 and at head dims 32 and 128, and the bf16
+             mma design of all three (forced_route) at the LM's shape,
+             element by element (see TOL); and a small model on the card
+             against the same model on the CPU;
 3. e2e     — run katib_tpu_torch/examples/lm-h100.json (3 TPE trials of the
              full-width transformer LM, 10 AdamW steps each, the suggester
              seeded from --seed, default 0) through the port's controller on
              cuda:0, with the launch and route counters set to 0 just before
              and read just after: every trial must succeed with a loss that
-             falls between its two reports, and every bf16 K1 and K3 launch
-             must have taken the sm90 (wgmma/TMA) route; then train the same
-             LM 10 steps on the sm90 route and on the mma kernels and hold
-             the two loss curves together (ROUTE_TOL);
-4. times   — each kernel, its plain version, the mma.sync design of K1
-             and K3 that f32 still takes (the "mma" route, called directly) and
+             falls between its two reports, and every (bf16) K1, K2 and K3
+             launch must have taken the sm90 (wgmma/TMA) route; then train
+             the same LM 10 steps on the sm90 route and on the mma kernels
+             and hold the two loss curves together (ROUTE_TOL);
+4. times   — each kernel, its plain version, the mma.sync design of K1,
+             K2 and K3 that f32 still takes (the "mma" route, called
+             directly) and
              scaled_dot_product_attention (a yardstick the port never calls)
              at the LM's shape with CUDA events, each the median of 5
              repeats; the train step's ms and tokens/s; a profiler breakdown
@@ -67,7 +71,7 @@ PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": (0.1, 2.0 ** -7), "float32": (1e-3, 1e-5)}  # (ATOL, RTOL)
 REPLACES = {  # the source of the route the main path takes (bf16, D 64)
     "fwd": ("katib_tpu_torch/ops/csrc/flash_fwd_sm90.cu", "katib_tpu/ops/flash_attention.py:74"),
-    "dq": ("katib_tpu_torch/ops/csrc/flash_bwd.cu", "katib_tpu/ops/flash_attention.py:199"),
+    "dq": ("katib_tpu_torch/ops/csrc/flash_bwd_dq_sm90.cu", "katib_tpu/ops/flash_attention.py:199"),
     "dkv": ("katib_tpu_torch/ops/csrc/flash_bwd_dkv_sm90.cu", "katib_tpu/ops/flash_attention.py:232"),
 }
 REPEATS = 5  # timings are the median of this many cuda_ms runs
@@ -97,19 +101,27 @@ def phase_build(torch) -> None:
 
     t0 = time.perf_counter()
     libs = _build.build()
+    serialised = []
     log(f"build: {time.perf_counter() - t0:.1f}s wall for {len(libs)} libraries")
     for src, path in libs.items():
         secs = _build.BUILD_SECONDS.get(src)
         log(f"build: {src} -> {os.path.basename(path)} "
             f"({'cached' if secs is None else f'{secs:.1f}s nvcc'})")
         report = path.with_name(path.name + ".log")
-        if report.exists():
-            text = report.read_text()
-            for line in ptxas_summary(text):
-                log(f"  ptxas: {line}")
-            for line in text.splitlines():  # e.g. wgmma serialised (C75xx): a kernel lost its overlap
-                if "Performance Loss" in line:
-                    log(f"  ptxas WARNING: {line.split(':', 1)[-1].strip()}")
+        text = report.read_text() if report.exists() else ""
+        for line in ptxas_summary(text):
+            log(f"  ptxas: {line}")
+        for line in serialised_wgmma(text):
+            log(f"  ptxas WARNING: {line}")
+            if src.endswith("_sm90.cu"):
+                serialised.append(f"{src}: {line}")
+    check(not serialised, "ptxas serialised the wgmma of an sm90 kernel:\n" + "\n".join(serialised))
+
+
+def serialised_wgmma(text: str):
+    """ptxas's "Potential Performance Loss" lines (C75xx: wgmma serialised,
+    the kernel lost its overlap of products and arithmetic)."""
+    return [line.split(":", 1)[-1].strip() for line in text.splitlines() if "Performance Loss" in line]
 
 
 def ptxas_summary(text: str):
@@ -191,6 +203,8 @@ def compare_case(torch, b, t, h, d, dtype, causal, fused=False, scale=None):
 
 
 def phase_kernels(torch, record) -> None:
+    from katib_tpu_torch.ops import flash_attention as fa
+
     main = compare_case(torch, **MAIN, dtype=torch.bfloat16, causal=True, fused=True)  # as the model calls it
     for name, err in main.items():
         record[name]["max_abs_err"] = err
@@ -209,6 +223,8 @@ def phase_kernels(torch, record) -> None:
     compare_case(torch, 2, 300, 4, 128, torch.bfloat16, True)
     compare_case(torch, 1, 2048, 8, 128, torch.bfloat16, True)
     compare_case(torch, 1, 100, 2, 128, torch.float32, True)
+    with fa.forced_route("mma"):  # the bf16 mma design: f32's kernels, and the yardstick of route_agreement
+        compare_case(torch, **MAIN, dtype=torch.bfloat16, causal=True, fused=True)
     model_check(torch)
 
 
@@ -312,7 +328,7 @@ def phase_e2e(torch, record, seed) -> None:
 
 def route_agreement(torch, fixed, lr=1e-3, steps=10) -> None:
     """The LM's losses over its first `steps` steps on the main path's route
-    and with K1 and K3 forced onto the mma kernels, from the experiment's
+    and with K1, K2 and K3 forced onto the mma kernels, from the experiment's
     weights and batch (seed 0). The routes round P and dS to bf16 in the
     same places and sum in different orders. Ten AdamW steps amplify such
     rounding differences, the more so the higher the learning rate
@@ -343,7 +359,7 @@ def route_agreement(torch, fixed, lr=1e-3, steps=10) -> None:
         torch.cuda.empty_cache()
     diff = max(abs(a - b) for a, b in zip(curves["sm90"], curves["mma"]))
     log(f"e2e: LM at lr {lr:g}, {steps} steps, sm90 route {[round(x, 4) for x in curves['sm90']]}; "
-        f"K1/K3 on the mma kernels {[round(x, 4) for x in curves['mma']]}; "
+        f"K1-K3 on the mma kernels {[round(x, 4) for x in curves['mma']]}; "
         f"largest difference {diff:.4f} (limit {ROUTE_TOL})")
     check(diff <= ROUTE_TOL, f"the sm90 and mma routes train apart: {diff:.4f} > {ROUTE_TOL}")
     check(curves["sm90"][-1] < curves["sm90"][0], f"the LM did not learn at lr {lr:g}: {curves['sm90']}")
@@ -406,6 +422,7 @@ def phase_times(torch, record) -> None:
     }
     mma_design = {  # the mma route's bf16 kernels, timed beside the route the main path takes
         "fwd": lambda: fa._fwd_cuda("mma", q, k, v, True, scale),
+        "dq": lambda: fa._dq_cuda("mma", q, k, v, do, lse, delta, True, scale),
         "dkv": lambda: fa._dkv_cuda("mma", q, k, v, do, lse, delta, True, scale),
     }
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))

@@ -7,13 +7,14 @@ kernels carry it, one for each Pallas kernel of the JAX package:
 - K2 ``dq``: dQ, recomputing P from the lse;
 - K3 ``dkv``: dK and dV, recomputing P from the lse.
 
-Each runs on one of two routes, chosen from the dtype and head dim alone
-(``route``): ``sm90``, the wgmma/TMA kernels (``csrc/flash_fwd_sm90.cu``,
-``csrc/flash_bwd_dkv_sm90.cu``), takes K1 and K3 in bf16; ``mma``, the
-mma.sync/FMA kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), takes
-f32 and K2. A launch that fails raises; nothing retries on the other route.
-``forced_route`` puts K1 and K3 on one design for a block, to hold the two
-designs against each other on the same model.
+Each has two designs, and the route picks one from the dtype and head dim
+alone (``route``): ``sm90``, the wgmma/TMA kernels
+(``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu``,
+``csrc/flash_bwd_dkv_sm90.cu``), takes bf16; ``mma``, the mma.sync/FMA
+kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), takes f32. A launch
+that fails raises; nothing retries on the other route. ``forced_route`` puts
+all three kernels on one design for a block, to hold the two designs against
+each other on the same model.
 
 Beside each kernel sits its plain PyTorch version (f32 math, explicit mask,
 explicit lse): the wrappers take it for tensors on the CPU, and for CUDA
@@ -33,9 +34,9 @@ import torch
 
 NEG_INF = -1e30  # the JAX package's mask value, above the causal diagonal
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
-ROUTES = {"fwd.sm90": 0, "fwd.mma": 0, "dq.mma": 0, "dkv.sm90": 0, "dkv.mma": 0}
+ROUTES = {"fwd.sm90": 0, "fwd.mma": 0, "dq.sm90": 0, "dq.mma": 0, "dkv.sm90": 0, "dkv.mma": 0}
 HEAD_DIMS = (32, 64, 128)
-SM90_KERNELS = ("fwd", "dkv")  # the kernels with a wgmma/TMA design
+SM90_KERNELS = ("fwd", "dq", "dkv")  # the kernels with a wgmma/TMA design
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -43,19 +44,22 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _VIEW = [_P, _L, _L, _L]
 _FWD_ARGS = [_I, _I, _I, _I, _I] + _VIEW * 4 + [_P, ctypes.c_float, _I, _P]
+_DQ_ARGS = [_I, _I, _I, _I, _I] + _VIEW * 4 + [_P, _P] + _VIEW + [ctypes.c_float, _I, _P]
 _DKV_ARGS = [_I, _I, _I, _I, _I] + _VIEW * 4 + [_P, _P] + _VIEW * 2 + [ctypes.c_float, _I, _P]
 _ARGTYPES = {
     "katib_flash_fwd": _FWD_ARGS,
     "katib_flash_fwd_sm90": _FWD_ARGS,
-    "katib_flash_bwd_dq": [_I, _I, _I, _I, _I] + _VIEW * 4 + [_P, _P] + _VIEW + [ctypes.c_float, _I, _P],
+    "katib_flash_bwd_dq": _DQ_ARGS,
+    "katib_flash_bwd_dq_sm90": _DQ_ARGS,
     "katib_flash_bwd_dkv": _DKV_ARGS,
     "katib_flash_bwd_dkv_sm90": _DKV_ARGS,
 }
 _SOURCE = {"katib_flash_fwd": "flash_fwd.cu", "katib_flash_fwd_sm90": "flash_fwd_sm90.cu",
-           "katib_flash_bwd_dq": "flash_bwd.cu", "katib_flash_bwd_dkv": "flash_bwd.cu",
+           "katib_flash_bwd_dq": "flash_bwd.cu", "katib_flash_bwd_dq_sm90": "flash_bwd_dq_sm90.cu",
+           "katib_flash_bwd_dkv": "flash_bwd.cu",
            "katib_flash_bwd_dkv_sm90": "flash_bwd_dkv_sm90.cu"}
 _ENTRY = {("fwd", "mma"): "katib_flash_fwd", ("fwd", "sm90"): "katib_flash_fwd_sm90",
-          ("dq", "mma"): "katib_flash_bwd_dq",
+          ("dq", "mma"): "katib_flash_bwd_dq", ("dq", "sm90"): "katib_flash_bwd_dq_sm90",
           ("dkv", "mma"): "katib_flash_bwd_dkv", ("dkv", "sm90"): "katib_flash_bwd_dkv_sm90"}
 _fns = {}
 _forced: Optional[str] = None  # set by forced_route
@@ -63,11 +67,11 @@ _forced: Optional[str] = None  # set by forced_route
 
 def route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     """The design that runs ``kernel`` ("fwd", "dq" or "dkv") for this dtype
-    and head dim: "sm90" (wgmma + TMA) for bf16 K1 and K3, "mma" (mma.sync
-    in bf16, plain FMA in f32, never TF32) for the rest; inside
-    ``forced_route``, K1 and K3 take the forced design."""
+    and head dim: "sm90" (wgmma + TMA) for bf16, "mma" (plain FMA, never
+    TF32) for f32; inside ``forced_route``, the forced design (bf16 on "mma"
+    is the mma.sync design, kept as the yardstick)."""
     if kernel not in SM90_KERNELS:
-        return "mma"
+        raise ValueError(f"no kernel {kernel!r}; the kernels are {SM90_KERNELS}")
     if _forced is not None:
         return _forced
     return "sm90" if dtype == torch.bfloat16 and head_dim in HEAD_DIMS else "mma"
@@ -75,8 +79,8 @@ def route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
 
 @contextlib.contextmanager
 def forced_route(design: str):
-    """K1 and K3 run on ``design`` ("sm90" or "mma") inside the block, for
-    every dtype and head dim; the sm90 kernels reject f32 at launch."""
+    """K1, K2 and K3 run on ``design`` ("sm90" or "mma") inside the block,
+    for every dtype and head dim; the sm90 kernels reject f32 at launch."""
     global _forced
     if design not in ("sm90", "mma"):
         raise ValueError(f"no design {design!r}; the designs are 'sm90' and 'mma'")
@@ -216,21 +220,27 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float):
     return out
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
-    """K2: dQ. ``lse`` and ``delta`` are [B, H, T] f32."""
-    if q.device.type == "cpu":
-        return bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
-    _require_cuda(q)
+def _dq_cuda(design: str, q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     q, k, v, do = (_operand(x) for x in (q, k, v, do))
     code, d, b, t, h = _check(q, k, v, do)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        _launch(_ENTRY["dq", "mma"], code, d, b, t, h, *_view(q), *_view(k), *_view(v), *_view(do),
+        _launch(_ENTRY["dq", design], code, d, b, t, h, *_view(q), *_view(k), *_view(v), *_view(do),
                 lse.data_ptr(), delta.data_ptr(), *_view(dq), float(sm_scale), int(causal), _stream(q))
-    LAUNCHES["dq"] += 1
-    ROUTES["dq.mma"] += 1
     return dq
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
+    """K2: dQ. ``lse`` and ``delta`` are [B, H, T] f32."""
+    if q.device.type == "cpu":
+        return bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
+    _require_cuda(q)
+    design = route("dq", q.dtype, q.shape[-1])
+    out = _dq_cuda(design, q, k, v, do, lse, delta, causal, sm_scale)
+    LAUNCHES["dq"] += 1
+    ROUTES["dq." + design] += 1
+    return out
 
 
 def _dkv_cuda(design: str, q, k, v, do, lse, delta, causal: bool, sm_scale: float):

@@ -9,8 +9,8 @@ Trains the full-width LM of ``examples/lm-h100.json`` on one CUDA device,
 from the weights and the batch that each seed draws (seed 0 is what every
 trial of that experiment trains on), six ways:
 
-- ``sm90``: K1 and K3 on the wgmma/TMA kernels, the main path's design;
-- ``mma``: K1 and K3 on the mma.sync kernels (``forced_route("mma")``);
+- ``sm90``: K1, K2 and K3 on the wgmma/TMA kernels, the main path's design;
+- ``mma``: K1, K2 and K3 on the mma.sync kernels (``forced_route("mma")``);
 - ``sm90+one``, ``mma+one``: the same, with one element of the token
   embedding (the first token's first column) one bf16 unit higher;
 - ``sm90+all``, ``mma+all``: the same, with every weight scaled by

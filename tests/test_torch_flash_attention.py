@@ -316,6 +316,58 @@ def test_smoke_check_holds_an_all_zero_reference_exactly(smoke):
     assert need == math.inf and not need <= atol
 
 
+def _ptxas_entry(mangled, registers, spill_bytes=0):
+    return (f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {mangled}\n"
+            f"    0 bytes stack frame, {spill_bytes} bytes spill stores, {spill_bytes} bytes spill loads\n"
+            f"ptxas info    : Used {registers} registers, used 1 barriers, 40 bytes smem, 1040 bytes cmem[0]\n")
+
+
+# -Xptxas -v as nvcc prints it for flash_bwd_dq_sm90.cu, and for one mma.sync kernel.
+_DQ_SM90_LOG = "ptxas info    : 0 bytes gmem\n" + "".join(
+    _ptxas_entry(f"_ZN11katib_flash4sm9024flash_bwd_dq_sm90_kernelILi{d}EEEvNS0_8DqParamsE", regs, spill)
+    for d, regs, spill in ((32, 90, 0), (64, 128, 0), (128, 168, 8)))
+_MMA_LOG = _ptxas_entry("_ZN11katib_flash19flash_bwd_dq_kernelI13__nv_bfloat16Li64EEEvNS_9BwdParamsE", 134)
+_SERIALISED = ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are "
+               "serialized due to non wgmma instructions defining accumulator registers of a wgmma between "
+               "start and end of the pipeline stage in the function "
+               "'_ZN11katib_flash4sm9024flash_bwd_dq_sm90_kernelILi64EEEvNS0_8DqParamsE'\n")
+
+
+def test_smoke_ptxas_summary_names_the_dq_kernel_at_every_head_dim(smoke):
+    lines = list(smoke.ptxas_summary(_DQ_SM90_LOG + _MMA_LOG))
+    assert [line.split(":")[0] for line in lines] == [
+        "flash_bwd_dq_sm90_kernel<bf16, D=32>", "flash_bwd_dq_sm90_kernel<bf16, D=64>",
+        "flash_bwd_dq_sm90_kernel<bf16, D=128>", "flash_bwd_dq_kernel<bf16, D=64>"]
+    assert "Used 90 registers" in lines[0] and "0 bytes spill stores" in lines[0]
+    assert "Used 168 registers" in lines[2] and "8 bytes spill stores" in lines[2]
+    assert smoke.serialised_wgmma(_DQ_SM90_LOG) == []
+    assert smoke.serialised_wgmma(_DQ_SM90_LOG + _SERIALISED) == [_SERIALISED.split(":", 1)[1].strip()]
+
+
+@pytest.mark.parametrize("source,fatal", [("flash_bwd_dq_sm90.cu", True), ("flash_fwd_sm90.cu", True),
+                                          ("flash_bwd.cu", False)])
+def test_smoke_build_fails_on_serialised_wgmma_in_an_sm90_kernel(smoke, monkeypatch, tmp_path, capsys,
+                                                                 source, fatal):
+    """chip_smoke.py's build phase on canned ptxas logs: a clean build
+    passes; a "Performance Loss" line fails it when it comes from an sm90
+    source, and is printed only for the other sources."""
+    libs = {src: tmp_path / f"lib{Path(src).stem}-0.so" for src in (source, "flash_fwd.cu")}
+    monkeypatch.setattr(_build, "build", lambda: libs)
+    for lib in libs.values():
+        lib.with_name(lib.name + ".log").write_text(_DQ_SM90_LOG)
+    smoke.phase_build(torch)
+    assert "ptxas: flash_bwd_dq_sm90_kernel<bf16, D=128>" in capsys.readouterr().out
+    log = libs[source].with_name(libs[source].name + ".log")
+    log.write_text(_DQ_SM90_LOG + _SERIALISED)
+    if fatal:
+        with pytest.raises(smoke.SmokeFailure, match="serialised the wgmma"):
+            smoke.phase_build(torch)
+    else:
+        smoke.phase_build(torch)
+    assert "ptxas WARNING: (C7515) Potential Performance Loss" in capsys.readouterr().out
+
+
 # -- the CUDA sources and their binding (compiled on the card only) ------------
 
 def _c_params(name):
@@ -354,11 +406,11 @@ def test_sources_target_sm90a_and_carry_notes():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_route_table(kernel, dtype, head_dim):
-    """The route follows dtype and head dim alone: bf16 K1 and K3 take the
-    wgmma/TMA kernels at every head dim; f32 (no TF32) and K2 stay on the
-    mma.sync/FMA kernels. Each route names an entry point of its own source."""
+    """The route follows dtype and head dim alone: bf16 K1, K2 and K3 take
+    the wgmma/TMA kernels at every head dim; f32 (no TF32) stays on the FMA
+    kernels. Each route names an entry point of its own source."""
     design = fa.route(kernel, dtype, head_dim)
-    want = "sm90" if dtype == torch.bfloat16 and kernel in ("fwd", "dkv") else "mma"
+    want = "sm90" if dtype == torch.bfloat16 else "mma"
     assert design == want
     entry = fa._ENTRY[kernel, design]
     assert entry.endswith("_sm90") == (design == "sm90")
@@ -369,22 +421,24 @@ def test_route_table(kernel, dtype, head_dim):
 
 
 @pytest.mark.parametrize("design", ["mma", "sm90"])
-def test_forced_route_moves_k1_and_k3_only_and_restores(design):
-    """Inside forced_route, K1 and K3 take the forced design at every dtype
-    and head dim, K2 stays on mma, and the table comes back on exit, also
-    after an exception; an unknown design is refused."""
+def test_forced_route_moves_k1_k2_and_k3_and_restores(design):
+    """Inside forced_route, K1, K2 and K3 take the forced design at every
+    dtype and head dim, and the table comes back on exit, also after an
+    exception; an unknown design, and an unknown kernel, is refused."""
     table = {(k, dt, d): fa.route(k, dt, d) for k in ("fwd", "dq", "dkv")
              for dt in (torch.bfloat16, torch.float32) for d in fa.HEAD_DIMS}
+    assert fa.SM90_KERNELS == ("fwd", "dq", "dkv")
     with pytest.raises(KeyError):
         with fa.forced_route(design):
             for kernel, dtype, head_dim in table:
-                want = design if kernel in fa.SM90_KERNELS else "mma"
-                assert fa.route(kernel, dtype, head_dim) == want
+                assert fa.route(kernel, dtype, head_dim) == design
             raise KeyError("leave the block")
     assert {key: fa.route(*key) for key in table} == table
     with pytest.raises(ValueError):
         with fa.forced_route("tf32"):
             pass
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.route("bwd", torch.bfloat16, 64)
 
 
 def _translation_unit(source):
@@ -399,6 +453,7 @@ def _translation_unit(source):
 
 
 @pytest.mark.parametrize("source,replaces", [("flash_fwd_sm90.cu", "::_fwd_kernel"),
+                                             ("flash_bwd_dq_sm90.cu", "::_bwd_dq_kernel"),
                                              ("flash_bwd_dkv_sm90.cu", "::_bwd_dkv_kernel")])
 def test_sm90_sources_carry_notes_and_use_wgmma_and_tma(source, replaces):
     text = (CSRC / source).read_text()
@@ -421,6 +476,9 @@ def test_library_name_follows_the_sources():
     path = _build.library_path("flash_fwd.cu")
     assert path.parent == _build.BUILD_DIR and path.name.startswith("libflash_fwd-")
     assert _build.library_path("flash_bwd.cu").name != path.name
+    dq = _build.library_path("flash_bwd_dq_sm90.cu")
+    assert "flash_bwd_dq_sm90.cu" in _build.SOURCES and dq.name.startswith("libflash_bwd_dq_sm90-")
+    assert len({_build.library_path(src).name for src in _build.SOURCES}) == len(_build.SOURCES)
 
 
 def test_import_builds_and_loads_nothing():
