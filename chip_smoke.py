@@ -14,10 +14,13 @@ Phases, all of them on every run, each fatal on failure:
              D=64, bf16, causal) with q, k, v as slices of one [B, T, 3, H,
              D] tensor as the model passes them, at ragged T (against both
              the 64- and the 128-row tiles), non-causal, at softmax scales 0
-             and -0.2, in f32 and at head dims 32 and 128, and the bf16
-             mma design of all three (forced_route) at the LM's shape,
-             element by element (see TOL); and a small model on the card
-             against the same model on the CPU;
+             and -0.2, in f32 and at head dims 32 and 128, at head dims 16
+             and 96 (zero-padded to 32 and 128 by the wrapper) in both
+             dtypes, causal and not, and the bf16 mma design of all three
+             (forced_route) at the LM's shape, element by element (see
+             TOL); a small f32 model on the card against the same model on
+             the CPU; and three bf16 AdamW steps of a small LM on the card
+             against the same steps on the CPU (BF16_STEP_TOL);
 3. e2e     — run katib_tpu_torch/examples/lm-h100.json (3 TPE trials of the
              full-width transformer LM, 10 AdamW steps each, the suggester
              seeded from --seed, default 0) through the port's controller on
@@ -33,8 +36,20 @@ Phases, all of them on every run, each fatal on failure:
              scaled_dot_product_attention (a yardstick the port never calls)
              at the LM's shape with CUDA events, each the median of 5
              repeats; the train step's ms and tokens/s; a profiler breakdown
-             of two train steps.
+             of two train steps;
+5. mnist   — with torch's default TF32 flags (cuDNN may use TF32) for its
+             duration: five SGD steps of the MNIST trial's step on the card
+             against the same steps on the CPU, f32, from the same weights
+             and batches (MNIST_TOL; the step holds its convolutions in
+             f32 itself), and a control with that hold undone, which must
+             miss MNIST_TOL; the step's ms at batch 64; then
+             examples/random.json and examples/hyperband.json, unchanged,
+             through the port's CLI on the card (full width, 60 000
+             images): every trial must succeed with finite loss and
+             accuracy, and Hyperband must run its brackets to the trial
+             budget.
 
+Last, it checks that nothing of JAX or of the JAX package was imported.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device, or without
 the katib_tpu_torch package beside this script, it exits non-zero and prints
@@ -43,6 +58,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -76,6 +92,17 @@ REPLACES = {  # the source of the route the main path takes (bf16, D 64)
 }
 REPEATS = 5  # timings are the median of this many cuda_ms runs
 ROUTE_TOL = 0.05  # nats: loss difference of the two routes over 10 steps at lr 1e-3, seed 0 (see route_agreement)
+# nats: bf16 LM losses on the card against the CPU over 3 AdamW steps, the
+# bf16 tolerance of the CPU tests against the JAX step
+# (tests/test_torch_train.py::test_bf16_adamw_steps_match_jax).
+BF16_STEP_TOL = 3e-2
+# MNIST trial step, f32, card against CPU: losses and parameters after five
+# SGD steps, absolute; the CPU tests' gradient and parameter tolerance
+# against optax. The phase also runs a control, the same steps with the
+# step's f32 hold undone (cuDNN free to convolve in TF32), and fails unless
+# the control misses this tolerance: the check must catch a lost hold.
+MNIST_TOL = 1e-4
+JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "katib_tpu")  # never imported by the port
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out")  # git-ignored
 
 
@@ -223,9 +250,14 @@ def phase_kernels(torch, record) -> None:
     compare_case(torch, 2, 300, 4, 128, torch.bfloat16, True)
     compare_case(torch, 1, 2048, 8, 128, torch.bfloat16, True)
     compare_case(torch, 1, 100, 2, 128, torch.float32, True)
+    for d in (16, 96):  # zero-padded to 32 and 128 at the wrapper
+        for dtype in (torch.bfloat16, torch.float32):
+            compare_case(torch, 2, 300, 4, d, dtype, True)
+            compare_case(torch, 1, 130, 3, d, dtype, False)
     with fa.forced_route("mma"):  # the bf16 mma design: f32's kernels, and the yardstick of route_agreement
         compare_case(torch, **MAIN, dtype=torch.bfloat16, causal=True, fused=True)
     model_check(torch)
+    bf16_step_check(torch)
 
 
 def model_check(torch) -> None:
@@ -250,6 +282,29 @@ def model_check(torch) -> None:
     gerr = max(float((results[0][1][n] - results[1][1][n]).abs().max()) for n in results[0][1])
     log(f"kernels: model f32 cuda vs cpu: logits max_abs_err={err:.3e}, grads max_abs_err={gerr:.3e} (tol 1e-4)")
     check(err <= 1e-4 and gerr <= 1e-4, "the model on the card disagrees with the model on the CPU")
+
+
+def bf16_step_check(torch, steps=3) -> None:
+    """Three AdamW steps of a small bf16 LM (the main path's dtype) on the
+    card against the same steps on the CPU, from the same seeded weights and
+    batch: the kernels against the plain versions, through the train step."""
+    import numpy as np
+
+    from katib_tpu_torch.models.transformer import TransformerConfig
+    from katib_tpu_torch.parallel.train import make_lm_train_step
+
+    cfg = TransformerConfig(vocab_size=512, embed_dim=128, num_layers=2, num_heads=2, max_seq_len=200,
+                            dtype=torch.bfloat16)
+    data = np.random.default_rng(1).integers(0, 512, size=(2, 201), dtype=np.int32)
+    curves = {}
+    for dev in ("cpu", "cuda"):
+        _, _, step_fn, put_batch = make_lm_train_step(cfg, torch.device(dev), 1e-3)
+        batch = put_batch(data[:, :-1], data[:, 1:])
+        curves[dev] = [float(step_fn(*batch)) for _ in range(steps)]
+    err = max(abs(a - b) for a, b in zip(curves["cpu"], curves["cuda"]))
+    log(f"kernels: LM bf16, {steps} AdamW steps, cuda {[round(x, 5) for x in curves['cuda']]} vs cpu "
+        f"{[round(x, 5) for x in curves['cpu']]}: max loss difference {err:.3e} (tol {BF16_STEP_TOL})")
+    check(err <= BF16_STEP_TOL, "the bf16 train step on the card disagrees with the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -505,6 +560,169 @@ def train_step_times(torch, fixed) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the MNIST trial and the repo's examples
+# ---------------------------------------------------------------------------
+
+def phase_mnist(torch) -> None:
+    """Runs with torch's default TF32 flags (cuDNN convolutions may use
+    TF32) and puts back the flags main() set."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
+    try:
+        mnist_step_check(torch)
+        for name in ("random", "hyperband"):
+            run_example(torch, name)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def mnist_step_check(torch, steps=5, batch=64) -> None:
+    """The MNIST trial's step on the card against the CPU (same weights, same
+    batches, f32), then its time on the card."""
+    import numpy as np
+
+    from katib_tpu_torch.models import mnist_cnn
+    from katib_tpu_torch.utils.datasets import batch_indices, load_mnist
+
+    x, y = load_mnist("train", n=batch * steps)
+    idx = torch.from_numpy(batch_indices(len(x), batch, np.random.default_rng(0)))
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    def run(dev):
+        model = mnist_cnn.MnistCNN().to(dev)
+        step = mnist_cnn.make_mnist_train_step(model, 0.05, 0.9)
+        xd, yd = torch.tensor(x, device=dev), torch.tensor(y, dtype=torch.long, device=dev)
+        losses = [float(step(xd[sel], yd[sel])) for sel in idx.to(dev)]
+        return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+    def errors(a, b):
+        return (max(abs(u - v) for u, v in zip(a[0], b[0])),
+                max(float((a[1][n] - b[1][n]).abs().max()) for n in a[1]))
+
+    cpu = run("cpu")
+    loss_err, param_err = errors(cpu, run("cuda"))
+    log(f"mnist: trial step f32 cuda vs cpu, {steps} SGD steps at batch {batch} (cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32} outside the step): losses max_abs_err={loss_err:.3e}, "
+        f"params max_abs_err={param_err:.3e} (tol {MNIST_TOL})")
+    check(loss_err <= MNIST_TOL and param_err <= MNIST_TOL, "the MNIST step on the card disagrees with the CPU")
+    check(torch.backends.cudnn.allow_tf32, "the MNIST step did not put cuDNN's TF32 flag back")
+
+    class Unheld:  # the control: the step's hold undone, TF32 left as torch's default allows
+        @staticmethod
+        def hold():
+            return contextlib.nullcontext()
+
+    held, mnist_cnn.f32_convolutions = mnist_cnn.f32_convolutions, Unheld()
+    try:
+        control = errors(cpu, run("cuda"))
+    finally:
+        mnist_cnn.f32_convolutions = held
+    log(f"mnist: control, the same steps with the hold undone (cuDNN in TF32): losses max_abs_err="
+        f"{control[0]:.3e}, params max_abs_err={control[1]:.3e} (must exceed tol {MNIST_TOL})")
+    check(max(control) > MNIST_TOL, "MNIST_TOL does not catch TF32 convolutions: the check is too loose")
+
+    model = mnist_cnn.MnistCNN().to("cuda")
+    step = mnist_cnn.make_mnist_train_step(model, 0.01, 0.5)
+    xd, yd = torch.tensor(x, device="cuda"), torch.tensor(y, dtype=torch.long, device="cuda")
+    sel = idx[0].to("cuda")
+    ms = median_ms(torch, lambda: step(xd[sel], yd[sel]), iters=200, warmup=20)
+    log(f"mnist: trial step (convs 20/50, hidden 500, batch {batch}, f32, SGD momentum): {ms:.4f} ms/step "
+        f"(median of {REPEATS} runs of 200 steps, CUDA events); 60 000 images = {60000 // batch} steps/epoch")
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 50
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(xd[sel], yd[sel])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    from torch.autograd import DeviceType
+
+    # the device's own events (kernels, copies), not a user range over them
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3 / n
+    launches = len(on_device) / n
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    with open(os.path.join(OUT_DIR, "mnist_step_profile.txt"), "w") as f:
+        f.write(table)
+    log(f"mnist: profiler, {n} trial steps: wall {wall_ms:.4f} ms/step (profiled), device busy "
+        f"{device_ms:.4f} ms/step ({100 * device_ms / wall_ms:.1f}% busy, {100 - 100 * device_ms / wall_ms:.1f}% "
+        f"idle), {launches:.1f} device ops/step; top device time:\n{table}")
+
+
+def run_example(torch, name) -> None:
+    """examples/<name>.json, unchanged, through the port's CLI on the card."""
+    from katib_tpu_torch import cli
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.json")
+    with open(path) as f:
+        doc = json.load(f)
+    import tempfile
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix=f"mnist-{name}-", dir=OUT_DIR)
+    t0 = time.perf_counter()
+    rc = cli.main(["run", path, "--root", root, "--timeout", "900"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, doc["name"], "experiment.json")) as f:
+        record = json.load(f)
+    status, trials = record["experiment"]["status"], record["trials"]
+    walls = sorted(t["completionTime"] - t["startTime"] for t in trials)
+    log(f"mnist: examples/{name}.json through the port's CLI: rc {rc}, {status['condition']} "
+        f"({status['reason']}), {status['trialsSucceeded']}/{len(trials)} trials succeeded, "
+        f"experiment wall {wall:.1f}s; trial wall min {walls[0]:.2f}s, median {walls[len(walls) // 2]:.2f}s, "
+        f"max {walls[-1]:.2f}s")
+    check(rc == 0 and status["condition"] == "Succeeded", f"examples/{name}.json did not succeed")
+    check(len(trials) == doc["maxTrialCount"], f"examples/{name}.json ran {len(trials)} trials")
+    for t in trials:
+        a = {p["name"]: p["value"] for p in t["parameterAssignments"]}
+        rows = record["logs"][t["name"]]
+        values = {m: [float(v) for _, metric, v in rows if metric == m] for m in ("loss", "accuracy")}
+        epochs = int(a.get("num_epochs", "1"))
+        log(f"mnist:   {t['name']} {t['condition']} lr={float(a['lr']):.4f} momentum={float(a['momentum']):.3f} "
+            f"epochs={epochs} wall={t['completionTime'] - t['startTime']:.2f}s "
+            f"loss={[round(v, 4) for v in values['loss']]} accuracy={[round(v, 4) for v in values['accuracy']]}")
+        check(t["condition"] == "Succeeded", f"trial {t['name']} did not succeed:\n{t.get('message', '')}")
+        for metric, vals in values.items():
+            check(len(vals) == epochs and all(math.isfinite(v) for v in vals),
+                  f"trial {t['name']}: {metric} {vals} is not one finite value per epoch")
+    if name == "hyperband":
+        check_hyperband_rungs(record)
+
+
+def check_hyperband_rungs(record) -> None:
+    """r_l 9, eta 3, 18 trials: 9 of 1 epoch, the best 3 of them for 3, the
+    best of those for 9, then 5 new ones of 3 (the trial budget cuts the
+    second bracket). "Best" is Hyperband's ranking: the lowest loss a trial
+    reported (a trial with none ranks first, as the suggester ranks it)."""
+    trials = record["trials"]
+    params = [{p["name"]: p["value"] for p in t["parameterAssignments"]} for t in trials]
+    budgets = [p["num_epochs"] for p in params]
+    log(f"mnist: hyperband budgets (num_epochs) in order: {budgets}")
+    check(budgets[:13] == ["1"] * 9 + ["3"] * 3 + ["9"] and set(budgets[13:]) == {"3"},
+          f"hyperband's brackets are off: {budgets}")
+
+    def best(indices, k):
+        def loss(i):
+            values = [float(v) for _, m, v in record["logs"][trials[i]["name"]] if m == "loss"]
+            values = [v for v in values if not math.isnan(v)]
+            return min(values) if values else -math.inf
+        return sorted(sorted(indices, key=loss)[:k])
+
+    def config(i):
+        return params[i]["lr"], params[i]["momentum"]
+
+    promoted = sorted(config(i) for i in range(9, 12))
+    check(promoted == sorted(config(i) for i in best(range(9), 3)),
+          f"hyperband promoted {promoted}, not the best three of its first rung")
+    check(config(12) == config(best(range(9, 12), 1)[0]),
+          f"hyperband's 9-epoch trial {config(12)} is not the best of its 3-epoch rung")
+    log("mnist: hyperband promoted the best 3 of 9 to 3 epochs and the best of those to 9")
+
+
+# ---------------------------------------------------------------------------
 
 def device_line() -> str:
     try:
@@ -543,13 +761,17 @@ def main(argv=None) -> int:
                      "bound_by": None, "library_ms": None}
               for name, (src, rep) in REPLACES.items()}
     phases = {"build": lambda: phase_build(torch), "kernels": lambda: phase_kernels(torch, record),
-              "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record)}
+              "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record),
+              "mnist": lambda: phase_mnist(torch)}
     try:
         for phase, run in phases.items():
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             log(f"phase {phase}: done in {time.perf_counter() - t0:.1f}s")
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
+        log(f"imports: modules of JAX or of the JAX package loaded: {leaked or 'none'}")
+        check(not leaked, f"the port imported {leaked}")
     except Exception as e:
         import traceback
 

@@ -2,9 +2,14 @@
 ``katib_tpu/api/spec.py``, cut to what one in-process HPO experiment uses.
 
 JSON field names and their meaning are the JAX package's (and Katib's), so a
-spec file runs under either package once its ``entryPoint`` names a trial of
-that package. Not carried over yet: early-stopping specs, metrics-collector
-specs, NAS configs, resume policies, command templates and fair-share fields.
+spec file runs under either package: a ``katib_tpu.`` entry point runs the
+port's counterpart of that trial where the port has one
+(``controller/experiment.py:PORTED_TRIALS``). A section the port does not
+carry yet raises ``ValidationError`` naming it, as does any other key it
+does not know (keys that start with ``_``, such as ``_comment``, are
+ignored): NAS configs, ``reuseDuplicateResults: true``, a metrics collector
+other than the default push collector, a resume policy other than
+``Never``, fair-share fields, and command templates.
 """
 
 from __future__ import annotations
@@ -17,6 +22,10 @@ from typing import Any, Callable, Dict, List, Optional
 UNAVAILABLE_METRIC_VALUE = "unavailable"
 
 
+class ValidationError(ValueError):
+    """A spec the port cannot run as written."""
+
+
 class ObjectiveType(str, enum.Enum):
     MINIMIZE = "minimize"
     MAXIMIZE = "maximize"
@@ -27,6 +36,14 @@ class MetricStrategyType(str, enum.Enum):
     MIN = "min"
     MAX = "max"
     LATEST = "latest"
+
+
+class ComparisonType(str, enum.Enum):
+    """An early-stopping rule's comparison (Katib's common_types.go)."""
+
+    EQUAL = "equal"
+    LESS = "less"
+    GREATER = "greater"
 
 
 class ParameterType(str, enum.Enum):
@@ -199,6 +216,43 @@ class AlgorithmSpec:
 
 
 @dataclass
+class EarlyStoppingSpec:
+    algorithm_name: str = ""
+    algorithm_settings: List[AlgorithmSetting] = field(default_factory=list)
+
+    def settings_dict(self) -> Dict[str, str]:
+        return {s.name: s.value for s in self.algorithm_settings}
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "algorithmName": self.algorithm_name,
+            "algorithmSettings": [s.to_dict() for s in self.algorithm_settings],
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EarlyStoppingSpec":
+        return cls(
+            algorithm_name=d.get("algorithmName", ""),
+            algorithm_settings=[AlgorithmSetting.from_dict(s) for s in d.get("algorithmSettings", [])],
+        )
+
+
+@dataclass
+class EarlyStoppingRule:
+    """Stop the trial when metric ``name`` compares to ``value`` as
+    ``comparison`` says; with ``start_step`` > 0, only at that report."""
+
+    name: str
+    value: str
+    comparison: ComparisonType
+    start_step: int = 0
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "value": self.value, "comparison": self.comparison.value,
+                "startStep": self.start_step}
+
+
+@dataclass
 class TrialResources:
     """Devices one trial holds; the controller hands out that many slots."""
 
@@ -232,7 +286,7 @@ class TrialTemplate:
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TrialTemplate":
         if d.get("command") is not None:
-            raise ValueError("command trial templates are not part of the port yet; use entryPoint")
+            raise ValidationError("command trial templates are not part of the port yet; use entryPoint")
         return cls(
             entry_point=d.get("entryPoint"),
             resources=TrialResources.from_dict(d.get("resources", {})),
@@ -250,6 +304,7 @@ class ExperimentSpec:
     parallel_trial_count: Optional[int] = None
     max_trial_count: Optional[int] = None
     max_failed_trial_count: Optional[int] = None
+    early_stopping: Optional[EarlyStoppingSpec] = None
 
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
@@ -259,6 +314,8 @@ class ExperimentSpec:
             "algorithm": self.algorithm.to_dict(),
             "trialTemplate": self.trial_template.to_dict(),
         }
+        if self.early_stopping is not None:
+            d["earlyStopping"] = self.early_stopping.to_dict()
         for key, value in (
             ("parallelTrialCount", self.parallel_trial_count),
             ("maxTrialCount", self.max_trial_count),
@@ -270,6 +327,7 @@ class ExperimentSpec:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "ExperimentSpec":
+        refuse_sections_not_carried(d)
         return cls(
             name=d.get("name", ""),
             parameters=[ParameterSpec.from_dict(p) for p in d.get("parameters", [])],
@@ -279,11 +337,52 @@ class ExperimentSpec:
             parallel_trial_count=d.get("parallelTrialCount"),
             max_trial_count=d.get("maxTrialCount"),
             max_failed_trial_count=d.get("maxFailedTrialCount"),
+            early_stopping=EarlyStoppingSpec.from_dict(d["earlyStopping"]) if d.get("earlyStopping") else None,
         )
 
     @classmethod
     def from_json(cls, s: str) -> "ExperimentSpec":
         return cls.from_dict(json.loads(s))
+
+
+_CARRIED_KEYS = frozenset({
+    "name", "parameters", "objective", "algorithm", "trialTemplate", "parallelTrialCount",
+    "maxTrialCount", "maxFailedTrialCount", "earlyStopping",
+})
+
+
+def _default_collector(mc: Any) -> bool:
+    """The JAX package's default collector: push reporting, as its
+    ``MetricsCollectorSpec().to_dict()`` writes it, or the section left out."""
+    if not mc:
+        return True
+    collector = mc.get("collector") or {} if isinstance(mc, dict) else None
+    return (isinstance(collector, dict) and set(mc) <= {"collector"} and set(collector) <= {"kind"}
+            and collector.get("kind", "Push") == "Push")
+
+
+def refuse_sections_not_carried(d: Dict[str, Any]) -> None:
+    """Raise ValidationError naming the first top-level section of a spec
+    document that the port would otherwise drop. The values that the JAX
+    package writes by default (push collector, ``resumePolicy: Never``,
+    ``reuseDuplicateResults: false``, ``fairShareWeight: 1``, no priority
+    class) are accepted."""
+    refused = {
+        "nasConfig": bool,
+        "reuseDuplicateResults": bool,
+        "metricsCollectorSpec": lambda v: not _default_collector(v),
+        "resumePolicy": lambda v: v not in (None, "Never"),
+        "priorityClass": bool,
+        "fairShareWeight": lambda v: float(v) != 1.0,
+    }
+    for key, value in d.items():
+        if key.startswith("_") or key in _CARRIED_KEYS:
+            continue
+        if key not in refused:
+            raise ValidationError(f"spec section {key!r} is unknown to the port")
+        if refused[key](value):
+            shown = "" if isinstance(value, (dict, list)) else f" ({value!r})"
+            raise ValidationError(f"spec section {key!r}{shown} is not part of the port yet; the JAX package runs it")
 
 
 @dataclass

@@ -9,12 +9,21 @@ function on a thread of its own, folds the reported metrics, and picks the
 optimal trial, with Katib's terminal conditions (goal, max failed, max
 trials, suggestion end). The device pool is the process's CUDA devices
 unless the caller passes ``devices`` (``[torch.device("cpu")]`` for the
-CPU). Replicas, tenancy, recovery, the compile service, packing and fused
+CPU).
+
+A suggester that answers ``TrialsNotCompleted`` (Hyperband between rungs)
+is asked again once a trial has ended; the settings a reply hands back are
+laid over the spec's algorithm settings for the next request. With an
+``earlyStopping`` section, one stopper per experiment computes the rules
+at each trial's start, and the trial's reporter enforces them: a stopped
+trial ends as EarlyStopped, which counts as completed, not failed.
+Replicas, tenancy, recovery, the compile service, packing and fused
 populations are later slices of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import os
@@ -25,10 +34,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 from ..api.spec import (
     UNAVAILABLE_METRIC_VALUE,
+    AlgorithmSetting,
+    AlgorithmSpec,
     ExperimentSpec,
     MetricStrategyType,
     ObjectiveType,
     TrialTemplate,
+    ValidationError,
 )
 from ..api.status import (
     Experiment,
@@ -39,15 +51,36 @@ from ..api.status import (
     TrialCondition,
 )
 from ..db.store import InMemoryObservationStore
+from ..earlystop.medianstop import create_early_stopper
 from ..runtime.context import TrialContext
-from ..runtime.metrics import EarlyStopped, MetricsReporter, TrialKilled
+from ..runtime.metrics import EarlyStopped, EarlyStoppingMonitor, MetricsReporter, TrialKilled
 from ..suggest import base as suggest_base
 
 DEFAULT_PARALLEL_TRIAL_COUNT = 3  # Katib's default
+JAX_PACKAGE = "katib_tpu"
+PORT_PACKAGE = "katib_tpu_torch"
+# Trials of the JAX package that the port has, as "module:function" below
+# the package: a spec's "katib_tpu.<path>" entry point runs
+# "katib_tpu_torch.<path>".
+PORTED_TRIALS = frozenset({
+    "parallel.train:run_lm_trial",
+    "models.mnist_cnn:run_mnist_trial",
+})
 
 
-class ValidationError(ValueError):
-    pass
+def port_entry_point(entry_point: str) -> str:
+    """The entry point the port runs for ``entry_point``: the port's
+    counterpart of a ported JAX-package trial, any entry point outside the
+    JAX package as it is. A JAX-package trial that is not ported raises
+    ValidationError before anything is imported."""
+    if entry_point.partition(":")[0].split(".")[0] != JAX_PACKAGE:
+        return entry_point
+    path = entry_point[len(JAX_PACKAGE) + 1:]
+    if path not in PORTED_TRIALS:
+        raise ValidationError(
+            f"entryPoint {entry_point!r} is a trial of the JAX package that is not yet ported; "
+            f"the port runs {sorted(JAX_PACKAGE + '.' + p for p in PORTED_TRIALS)}")
+    return f"{PORT_PACKAGE}.{path}"
 
 
 def resolve_entry_point(template: TrialTemplate) -> Callable[..., Any]:
@@ -55,7 +88,7 @@ def resolve_entry_point(template: TrialTemplate) -> Callable[..., Any]:
         return template.function
     if not template.entry_point:
         raise ValidationError("trialTemplate needs an entryPoint ('module:function')")
-    mod_name, _, fn_name = template.entry_point.partition(":")
+    mod_name, _, fn_name = port_entry_point(template.entry_point).partition(":")
     if not fn_name:
         raise ValidationError(f"entryPoint {template.entry_point!r} must be 'module:function'")
     return getattr(importlib.import_module(mod_name), fn_name)
@@ -88,7 +121,21 @@ def validate_spec(spec: ExperimentSpec, n_devices: int) -> None:
         resolve_entry_point(spec.trial_template)
     except (ImportError, AttributeError) as e:
         raise ValidationError(f"entryPoint {spec.trial_template.entry_point!r} does not resolve: {e}") from e
-    suggest_base.create(algo).validate_algorithm_settings(spec)
+    if spec.trial_template.function is None and res.num_devices > 1:
+        trial = port_entry_point(spec.trial_template.entry_point)
+        if trial.startswith(PORT_PACKAGE + ".") and trial[len(PORT_PACKAGE) + 1:] in PORTED_TRIALS:
+            raise ValidationError(
+                f"numDevices={res.num_devices}: the port's trial {trial!r} trains on one card; "
+                "data parallelism over several comes with the multi-GPU slice of the port")
+    try:
+        suggest_base.create(algo).validate_algorithm_settings(spec)
+    except (ValueError, KeyError) as e:
+        raise ValidationError(f"algorithm settings invalid: {e}") from e
+    if spec.early_stopping is not None:
+        try:
+            create_early_stopper(spec.early_stopping.algorithm_name).validate_settings(spec)
+        except (ValueError, KeyError) as e:
+            raise ValidationError(f"early stopping settings invalid: {e}") from e
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +222,15 @@ def update_experiment_status(exp: Experiment, trials: Sequence[Trial], suggestio
         sts.set_condition(ExperimentCondition.RUNNING, ExperimentReason.NONE, "Experiment is running")
 
 
+def _with_settings(spec: ExperimentSpec, settings: Dict[str, str]) -> ExperimentSpec:
+    """The spec with ``settings`` laid over its algorithm settings."""
+    if not settings:
+        return spec
+    merged = dict(spec.algorithm.settings_dict(), **settings)
+    algorithm = AlgorithmSpec(spec.algorithm.algorithm_name, [AlgorithmSetting(k, v) for k, v in merged.items()])
+    return dataclasses.replace(spec, algorithm=algorithm)
+
+
 # ---------------------------------------------------------------------------
 
 class ExperimentController:
@@ -192,6 +248,7 @@ class ExperimentController:
         self._free = list(self.devices)
         self._cv = threading.Condition()
         self._running: Dict[str, tuple] = {}  # trial name -> (thread, kill event, slots)
+        self._stoppers: Dict[str, Any] = {}  # experiment name -> its early stopper
 
     # -- experiments ----------------------------------------------------------
 
@@ -205,6 +262,8 @@ class ExperimentController:
         exp.status.set_condition(ExperimentCondition.CREATED, message="Experiment is created")
         self._experiments[spec.name] = exp
         self._trials[spec.name] = {}
+        if spec.early_stopping is not None:
+            self._stoppers[spec.name] = create_early_stopper(spec.early_stopping.algorithm_name)
         return exp
 
     def get_experiment(self, name: str) -> Experiment:
@@ -222,6 +281,8 @@ class ExperimentController:
         suggester = suggest_base.create(spec.algorithm.algorithm_name)
         deadline = None if timeout is None else time.monotonic() + timeout
         suggestion_end = False
+        settings: Dict[str, str] = {}  # handed back by the suggester's replies
+        waiting_on = None  # what the suggester saw when it said TrialsNotCompleted
         exp.status.set_condition(ExperimentCondition.RUNNING, message="Experiment is running")
         with self._cv:
             while True:
@@ -237,10 +298,20 @@ class ExperimentController:
                 want = spec.parallel_trial_count - len(active)
                 if spec.max_trial_count is not None:
                     want = min(want, spec.max_trial_count - len(trials))
-                if want > 0 and not suggestion_end:
-                    reply = suggester.get_suggestions(
-                        suggest_base.SuggestionRequest(experiment=spec, trials=trials, current_request_number=want)
-                    )
+                seen = (want, tuple((t.name, t.condition) for t in trials))
+                if want > 0 and not suggestion_end and seen != waiting_on:
+                    request = suggest_base.SuggestionRequest(
+                        experiment=_with_settings(spec, settings), trials=trials, current_request_number=want)
+                    try:
+                        reply = suggester.get_suggestions(request)
+                    except suggest_base.TrialsNotCompleted as e:
+                        if not active:  # no trial left whose end could change the answer
+                            exp.status.set_condition(ExperimentCondition.FAILED, ExperimentReason.EXPERIMENT_FAILED,
+                                                     f"the suggester waits for trials, but none is running: {e}")
+                            break
+                        waiting_on = seen  # ask again once a trial has ended
+                        reply = suggest_base.SuggestionReply()
+                    settings.update(reply.algorithm_settings)
                     suggestion_end = reply.search_ended
                     for assignment in reply.assignments:
                         trial = Trial.from_assignment(assignment, name)
@@ -260,21 +331,34 @@ class ExperimentController:
     def _dispatch(self, exp: Experiment) -> None:
         """Start pending trials, in order, while device slots are free."""
         need = exp.spec.trial_template.resources.num_devices
+        rules = None
         for trial in self._trials[exp.name].values():
             if trial.condition != TrialCondition.PENDING or len(self._free) < need:
                 continue
+            if rules is None:
+                rules = self._early_stopping_rules(exp)
             slots, self._free = self._free[:need], self._free[need:]
             kill = threading.Event()
             trial.set_condition(TrialCondition.RUNNING, message="trial is running")
-            thread = threading.Thread(target=self._run_trial, args=(exp, trial, slots, kill),
+            thread = threading.Thread(target=self._run_trial, args=(exp, trial, slots, kill, rules),
                                       name=f"trial-{trial.name}", daemon=True)
             self._running[trial.name] = (thread, kill, slots)
             thread.start()
 
-    def _run_trial(self, exp: Experiment, trial: Trial, slots: List[Any], kill: threading.Event) -> None:
+    def _early_stopping_rules(self, exp: Experiment) -> list:
+        """The rules for trials starting now, from the trials so far."""
+        stopper = self._stoppers.get(exp.name)
+        if stopper is None:
+            return []
+        return stopper.get_early_stopping_rules(exp.spec, list(self._trials[exp.name].values()), self.obs_store)
+
+    def _run_trial(self, exp: Experiment, trial: Trial, slots: List[Any], kill: threading.Event,
+                   rules: Sequence[Any] = ()) -> None:
+        obj = exp.spec.objective
+        monitor = EarlyStoppingMonitor(rules, obj.objective_metric_name, obj.type) if rules else None
         ctx = TrialContext(
             trial_name=trial.name, experiment_name=exp.name, assignments=trial.assignments_dict(),
-            reporter=MetricsReporter(self.obs_store, trial.name, kill_event=kill),
+            reporter=MetricsReporter(self.obs_store, trial.name, kill_event=kill, monitor=monitor),
             devices=slots,
         )
         outcome, message = TrialCondition.SUCCEEDED, ""

@@ -34,13 +34,17 @@ class InMemoryObservationStore:
         with self._lock:
             self._logs.setdefault(trial_name, []).extend(logs)
 
-    def get_observation_log(self, trial_name: str, metric_name: Optional[str] = None) -> List[MetricLog]:
-        """The trial's rows in time order, optionally of one metric."""
+    def get_observation_log(self, trial_name: str, metric_name: Optional[str] = None,
+                            limit: Optional[int] = None) -> List[MetricLog]:
+        """The trial's rows in time order, optionally of one metric, and
+        with ``limit`` only the first ``limit`` of them (the head read of
+        ``earlystop.curves.head_mean``)."""
         with self._lock:
             rows = list(self._logs.get(trial_name, []))
         if metric_name is not None:
             rows = [r for r in rows if r.metric_name == metric_name]
-        return sorted(rows, key=lambda r: r.timestamp)
+        rows.sort(key=lambda r: r.timestamp)
+        return rows if limit is None else rows[:limit]
 
     def folded(self, trial_name: str, metric_names: Sequence[str]) -> Observation:
         return fold_observation(self.get_observation_log(trial_name), metric_names)

@@ -16,6 +16,14 @@ that fails raises; nothing retries on the other route. ``forced_route`` puts
 all three kernels on one design for a block, to hold the two designs against
 each other on the same model.
 
+The kernels are built for head dims 32, 64 and 128 (``HEAD_DIMS``). A
+smaller head dim that is not one of them runs on the next one up
+(``head_dim_padded``): the wrapper pads q, k, v and dO with zero columns,
+which add exactly 0 to every score QKᵀ and to rowsum(O·dO), keeps the
+softmax scale of the true D (the wrappers take it explicitly), and slices
+O, dQ, dK and dV back; the padded columns of each are 0. A head dim above
+128 raises on CUDA, and the LM trial refuses it up front.
+
 Beside each kernel sits its plain PyTorch version (f32 math, explicit mask,
 explicit lse): the wrappers take it for tensors on the CPU, and for CUDA
 tensors they launch the kernel or raise. ``LAUNCHES`` counts kernel launches
@@ -27,10 +35,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # the JAX package's mask value, above the causal diagonal
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -74,7 +84,7 @@ def route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
         raise ValueError(f"no kernel {kernel!r}; the kernels are {SM90_KERNELS}")
     if _forced is not None:
         return _forced
-    return "sm90" if dtype == torch.bfloat16 and head_dim in HEAD_DIMS else "mma"
+    return "sm90" if dtype == torch.bfloat16 and head_dim <= HEAD_DIMS[-1] else "mma"
 
 
 @contextlib.contextmanager
@@ -133,6 +143,27 @@ def bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run ``d`` at: the least of ``HEAD_DIMS``
+    not below it, or ``d`` itself above 128 (which ``_check`` refuses)."""
+    return next((h for h in HEAD_DIMS if h >= d), d)
+
+
+def head_dim_padded(fn, n_operands: int, *args):
+    """``fn(*args)`` with its first ``n_operands`` [B, T, H, D] arguments
+    zero-padded along D to ``padded_head_dim(D)``, and every [B, T, H, D]
+    output sliced back to D. The softmax scale is an argument of ``fn``, so
+    it stays that of the true D."""
+    d = args[0].shape[-1]
+    dp = padded_head_dim(d)
+    if dp == d:
+        return fn(*args)
+    out = fn(*(F.pad(x, (0, dp - d)) for x in args[:n_operands]), *args[n_operands:])
+    if isinstance(out, tuple):
+        return tuple(o[..., :d] if o.dim() == 4 else o for o in out)
+    return out[..., :d]
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +245,7 @@ def flash_fwd(q, k, v, causal: bool, sm_scale: float):
         return fwd_plain(q, k, v, causal, sm_scale)
     _require_cuda(q)
     design = route("fwd", q.dtype, q.shape[-1])
-    out = _fwd_cuda(design, q, k, v, causal, sm_scale)
+    out = head_dim_padded(functools.partial(_fwd_cuda, design), 3, q, k, v, causal, sm_scale)
     LAUNCHES["fwd"] += 1
     ROUTES["fwd." + design] += 1
     return out
@@ -237,7 +268,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
         return bwd_dq_plain(q, k, v, do, lse, delta, causal, sm_scale)
     _require_cuda(q)
     design = route("dq", q.dtype, q.shape[-1])
-    out = _dq_cuda(design, q, k, v, do, lse, delta, causal, sm_scale)
+    out = head_dim_padded(functools.partial(_dq_cuda, design), 4, q, k, v, do, lse, delta, causal, sm_scale)
     LAUNCHES["dq"] += 1
     ROUTES["dq." + design] += 1
     return out
@@ -262,7 +293,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
         return bwd_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale)
     _require_cuda(q)
     design = route("dkv", q.dtype, q.shape[-1])
-    out = _dkv_cuda(design, q, k, v, do, lse, delta, causal, sm_scale)
+    out = head_dim_padded(functools.partial(_dkv_cuda, design), 4, q, k, v, do, lse, delta, causal, sm_scale)
     LAUNCHES["dkv"] += 1
     ROUTES["dkv." + design] += 1
     return out
@@ -301,7 +332,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Fused attention on [B, T, H, D], differentiable. ``sm_scale``
     defaults to 1/sqrt(D). Any T >= 1: the kernels mask the ragged last
-    tile themselves, so there is no dense fallback on CUDA."""
+    tile themselves, and any D up to 128 (padded up to ``HEAD_DIMS``), so
+    there is no dense fallback on CUDA."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))

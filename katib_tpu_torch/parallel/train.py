@@ -4,7 +4,8 @@ of ``katib_tpu/parallel/train.py``.
 ``run_lm_trial`` takes the same assignments, trains on the same synthetic
 batch (``np.random.default_rng(0)``) and reports ``loss`` on the same cadence
 (every 5 steps, plus a final report when ``num_steps`` is not a multiple of
-5). Tensor and sequence parallelism come with the multi-GPU slice.
+5). Tensor and sequence parallelism come with the multi-GPU slice; a head
+dim above 128 is refused before anything is built.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.transformer import TransformerConfig, TransformerLM
+from ..ops.flash_attention import HEAD_DIMS
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -85,6 +87,11 @@ def run_lm_trial(assignments: Dict[str, str], ctx=None) -> None:
         raise NotImplementedError(
             f"tensor_parallel={tp}, sequence_parallel={sp}: tensor and sequence "
             "parallelism come with the multi-GPU slice of the port"
+        )
+    if embed_dim // num_heads > HEAD_DIMS[-1]:
+        raise ValueError(
+            f"head dim {embed_dim // num_heads} (embed_dim {embed_dim} / num_heads {num_heads}): "
+            f"the flash-attention kernels take head dims up to {HEAD_DIMS[-1]}"
         )
 
     devices = ctx.torch_devices() if ctx is not None else []

@@ -32,6 +32,14 @@ class SuggestionRequest:
 class SuggestionReply:
     assignments: List[TrialAssignment] = field(default_factory=list)
     search_ended: bool = False  # the search space is exhausted
+    # settings the suggester hands back; the controller lays them over the
+    # spec's algorithm settings for the next request (Hyperband's bracket)
+    algorithm_settings: Dict[str, str] = field(default_factory=dict)
+
+
+class TrialsNotCompleted(Exception):
+    """The suggester cannot answer until running trials end (Hyperband's
+    next rung): the controller waits for a trial to end and asks again."""
 
 
 class Suggester(abc.ABC):
@@ -100,4 +108,4 @@ def create(name: str, **kwargs) -> Suggester:
 
 
 def _ensure_builtins() -> None:
-    from . import random_search, tpe  # noqa: F401  (registration side effects)
+    from . import grid, hyperband, random_search, tpe  # noqa: F401  (registration side effects)

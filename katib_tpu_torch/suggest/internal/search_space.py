@@ -8,6 +8,7 @@ choice. Suggesters work on unit-cube points and decode them to assignments.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -102,6 +103,22 @@ class HyperParameter:
         idx = int(u * self.num_choices)
         return self.choices[min(idx, self.num_choices - 1)]
 
+    def grid_values(self) -> List[str]:
+        """Every value grid search visits: the choices, ``min + i * step``
+        for a numeric parameter with a step, every integer of an INT range."""
+        if not self.is_numeric:
+            return list(self.choices)
+        if self.step:
+            n = int(math.floor((self.max - self.min) / self.step + 1e-9)) + 1
+            vals = [self.min + i * self.step for i in range(n)]
+        elif self.type == ParameterType.INT:
+            vals = [float(v) for v in range(int(self.min), int(self.max) + 1)]
+        else:
+            raise ValueError(f"grid search requires feasibleSpace.step for double parameter {self.name!r}")
+        if self.type == ParameterType.INT:
+            return [str(int(round(v))) for v in vals]
+        return [format_float(v) for v in vals]
+
 
 def format_float(v: float) -> str:
     """Stable short decimal formatting for assignments."""
@@ -126,6 +143,12 @@ class SearchSpace:
     def __len__(self) -> int:
         return len(self.params)
 
+    def param(self, name: str) -> HyperParameter:
+        for p in self.params:
+            if p.name == name:
+                return p
+        raise KeyError(name)
+
     # -- encode/decode -----------------------------------------------------
 
     def encode(self, assignments: Dict[str, str]) -> np.ndarray:
@@ -148,3 +171,10 @@ class SearchSpace:
         """n uniform unit-cube samples honoring distributions implicitly via
         from_unit. Shape [n, D]."""
         return rng.random((n, len(self.params)))
+
+    def grid_combinations(self) -> List[List[ParameterAssignment]]:
+        """The Cartesian product of every parameter's grid values, the
+        first parameter varying slowest."""
+        per_param = [p.grid_values() for p in self.params]
+        return [[ParameterAssignment(name=p.name, value=v) for p, v in zip(self.params, values)]
+                for values in itertools.product(*per_param)]

@@ -145,6 +145,53 @@ def test_command_templates_are_refused():
         spec.TrialTemplate.from_dict({"command": ["python", "train.py"]})
 
 
+@pytest.mark.parametrize("section,value", [
+    ("nasConfig", {"graphConfig": {"numLayers": 2}}),
+    ("reuseDuplicateResults", True),
+    ("metricsCollectorSpec", {"collector": {"kind": "StdOut"}}),
+    ("resumePolicy", "LongRunning"),
+    ("priorityClass", "high"),
+    ("fairShareWeight", 2.0),
+    ("tenant", "a"),  # a key the port does not know at all
+])
+def test_sections_the_port_does_not_carry_are_refused(section, value):
+    with pytest.raises(spec.ValidationError, match=repr(section)):
+        spec.ExperimentSpec.from_dict(dict(_small_doc(), **{section: value}))
+
+
+def test_default_sections_and_comments_are_accepted():
+    """What the JAX package writes by default (push collector, resumePolicy
+    Never) and a false reuseDuplicateResults parse; _comment keys are
+    ignored; earlyStopping round-trips as the JAX package writes it."""
+    doc = dict(_small_doc(), _comment="notes", reuseDuplicateResults=False, fairShareWeight=1,
+               earlyStopping={"algorithmName": "medianstop",
+                              "algorithmSettings": [{"name": "start_step", "value": "2"}]})
+    theirs = jax_spec.ExperimentSpec.from_dict(doc).to_dict()
+    assert theirs["metricsCollectorSpec"] == {"collector": {"kind": "Push"}} and theirs["resumePolicy"] == "Never"
+    ours = spec.ExperimentSpec.from_dict(theirs).to_dict()
+    assert ours == {k: theirs[k] for k in ours} and ours["earlyStopping"]["algorithmName"] == "medianstop"
+    assert spec.ExperimentSpec.from_dict(dict(doc, metricsCollectorSpec={})).early_stopping is not None
+
+
+def test_jax_package_entry_points_resolve_to_the_port(monkeypatch):
+    """A ported katib_tpu trial resolves to katib_tpu_torch's; an unported
+    one raises ValidationError before anything is imported; an entry point
+    outside the JAX package is left as it is."""
+    from katib_tpu_torch.controller import experiment as ce
+
+    assert ce.port_entry_point("katib_tpu.models.mnist_cnn:run_mnist_trial") == \
+        "katib_tpu_torch.models.mnist_cnn:run_mnist_trial"
+    assert ce.port_entry_point("katib_tpu.parallel.train:run_lm_trial") == \
+        "katib_tpu_torch.parallel.train:run_lm_trial"
+    assert ce.port_entry_point("mypkg.trial:run") == "mypkg.trial:run"
+    fn = ce.resolve_entry_point(spec.TrialTemplate(entry_point="katib_tpu.models.mnist_cnn:run_mnist_trial"))
+    assert fn.__module__ == "katib_tpu_torch.models.mnist_cnn"
+    monkeypatch.setattr(ce.importlib, "import_module", lambda name: pytest.fail(f"imported {name}"))
+    for entry in ("katib_tpu.models.darts_trainer:run_darts_trial", "katib_tpu:main"):
+        with pytest.raises(ce.ValidationError, match="not yet ported"):
+            ce.resolve_entry_point(spec.TrialTemplate(entry_point=entry))
+
+
 # -- suggesters and folding, against the JAX package's -------------------------
 
 def _history(n, seed=0):
@@ -280,6 +327,52 @@ def test_parallel_trials_each_hold_their_own_slot():
     assert all(len(s) == 1 for s in seen) and {s[0] for s in seen} == set(slots)
 
 
+def _hyperband_spec(fn):
+    """Hyperband with r_l 3, eta 3 over x and an INT budget: 3 trials of
+    budget 1, the best for 3, then 2 of 3."""
+    s = spec.ExperimentSpec.from_dict({
+        "name": "hb", "maxTrialCount": 6, "parallelTrialCount": 3, "maxFailedTrialCount": 3,
+        "parameters": [{"name": "x", "parameterType": "double", "feasibleSpace": {"min": "0", "max": "1"}},
+                       {"name": "budget", "parameterType": "int", "feasibleSpace": {"min": "1", "max": "3"}}],
+        "objective": {"type": "maximize", "objectiveMetricName": "score"},
+        "algorithm": {"algorithmName": "hyperband", "algorithmSettings": [
+            {"name": "r_l", "value": "3"}, {"name": "resource_name", "value": "budget"},
+            {"name": "random_state", "value": "0"}]},
+    })
+    s.trial_template = spec.TrialTemplate(function=fn)
+    return s
+
+
+@pytest.mark.parametrize("slots", [1, 3])
+def test_hyperband_waits_for_its_rungs(slots):
+    """The controller asks again after TrialsNotCompleted once a trial has
+    ended, and lays the reply's bracket settings over the spec's: the
+    rungs come out whole with one device slot or three."""
+    def trial(assignments, ctx):
+        time.sleep(0.01)
+        ctx.report(score=float(assignments["x"]) * float(assignments["budget"]))
+
+    exp, trials = _run(_hyperband_spec(trial), devices=[torch.device("cpu", i) for i in range(slots)])
+    assert exp.status.reason == ExperimentReason.MAX_TRIALS_REACHED and exp.status.trials_succeeded == 6
+    budgets = [t.assignments_dict()["budget"] for t in trials]
+    assert budgets == ["1", "1", "1", "3", "3", "3"]
+    first = {t.assignments_dict()["x"]: t for t in trials[:3]}
+    assert trials[3].assignments_dict()["x"] == max(first, key=float)
+
+
+def test_a_rung_that_cannot_complete_fails_the_experiment():
+    """A failed trial in Hyperband's rung leaves the suggester waiting for
+    good: with no trial running, the experiment fails instead of hanging."""
+    def trial(assignments, ctx):
+        if float(assignments["x"]) < 0.5:
+            raise RuntimeError("bad trial")
+        ctx.report(score=1.0)
+
+    exp, trials = _run(_hyperband_spec(trial))
+    assert not exp.status.is_succeeded and "none is running" in exp.status.message
+    assert len(trials) == 3 and any(t.condition == TrialCondition.FAILED for t in trials)
+
+
 @pytest.mark.parametrize("edit,match", [
     (lambda d: d["algorithm"].update(algorithmName="nope"), "unknown algorithm"),
     (lambda d: d["trialTemplate"]["resources"].update(numDevices=2), "numDevices"),
@@ -294,6 +387,22 @@ def test_invalid_specs_are_refused(edit, match):
     ctrl = ExperimentController(devices=CPU)
     with pytest.raises(ValueError, match=match):
         ctrl.create_experiment(spec.ExperimentSpec.from_dict(doc))
+
+
+@pytest.mark.parametrize("entry_point", ["katib_tpu.parallel.train:run_lm_trial",
+                                         "katib_tpu_torch.parallel.train:run_lm_trial",
+                                         "katib_tpu.models.mnist_cnn:run_mnist_trial"])
+def test_ported_trials_refuse_more_than_one_card(entry_point):
+    """The ported trials train on one card: a spec that gives one several
+    is refused, not run on the first while the others idle."""
+    doc = _small_doc()
+    doc["trialTemplate"].update(entryPoint=entry_point)
+    doc["trialTemplate"]["resources"].update(numDevices=2)
+    ctrl = ExperimentController(devices=[torch.device("cpu", i) for i in range(4)])
+    with pytest.raises(spec.ValidationError, match="numDevices=2: .* trains on one card"):
+        ctrl.create_experiment(spec.ExperimentSpec.from_dict(doc))
+    doc["trialTemplate"]["resources"].update(numDevices=1)
+    ctrl.create_experiment(spec.ExperimentSpec.from_dict(doc))
 
 
 # -- no silent CPU, no JAX ----------------------------------------------------

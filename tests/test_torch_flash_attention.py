@@ -240,6 +240,42 @@ def test_delta_is_rowsum_of_o_times_do():
     np.testing.assert_allclose(delta.numpy(), (o * do).sum(-1).transpose(1, 2).numpy(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [16, 96])
+def test_padded_head_dim_equals_the_unpadded_plain_path(d, causal):
+    """A head dim outside HEAD_DIMS runs at the next one up on the card:
+    q, k, v and dO padded with zero columns, the true D's scale, the outputs
+    sliced back. The padded plain path gives the unpadded one's O, lse, dQ,
+    dK and dV, and the padded columns of each output are 0."""
+    assert fa.padded_head_dim(d) == {16: 32, 96: 128}[d]
+    q, k, v, do = (_port(x) for x in _arrays(t=40, d=d))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.fwd_plain(q, k, v, causal, scale)
+    delta = fa.attention_delta(o, do)
+    want = {"fwd": (o, lse), "dq": fa.bwd_dq_plain(q, k, v, do, lse, delta, causal, scale),
+            "dkv": fa.bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)}
+    got = {"fwd": fa.head_dim_padded(fa.fwd_plain, 3, q, k, v, causal, scale),
+           "dq": fa.head_dim_padded(fa.bwd_dq_plain, 4, q, k, v, do, lse, delta, causal, scale),
+           "dkv": fa.head_dim_padded(fa.bwd_dkv_plain, 4, q, k, v, do, lse, delta, causal, scale)}
+    for name in want:
+        for g, w in zip(*(x if isinstance(x, tuple) else (x,) for x in (got[name], want[name]))):
+            assert g.shape == w.shape
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    qp, kp, vp, dop = (torch.nn.functional.pad(x, (0, fa.padded_head_dim(d) - d)) for x in (q, k, v, do))
+    for out in (fa.fwd_plain(qp, kp, vp, causal, scale)[0], fa.bwd_dq_plain(qp, kp, vp, dop, lse, delta, causal, scale),
+                *fa.bwd_dkv_plain(qp, kp, vp, dop, lse, delta, causal, scale)):
+        assert not out[..., d:].any()
+    for dtype in (torch.bfloat16, torch.float32):
+        assert fa.route("fwd", dtype, d) == ("sm90" if dtype == torch.bfloat16 else "mma")
+
+
+def test_head_dims_above_128_are_refused_on_the_card():
+    assert fa.padded_head_dim(256) == 256 and fa.route("fwd", torch.bfloat16, 256) == "mma"
+    q = torch.zeros((1, 8, 2, 256))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.head_dim_padded(lambda *xs: fa._check(*xs[:3]), 3, q, q, q)
+
+
 def test_cpu_tensors_launch_no_kernel():
     before, routes = dict(fa.LAUNCHES), dict(fa.ROUTES)
     q, k, v = (_port(x, requires_grad=True) for x in _arrays(t=32, n=3))

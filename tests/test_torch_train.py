@@ -2,9 +2,10 @@
 
 Three AdamW steps of the port's train step, started from the JAX step's own
 initial parameters (carried over with lm_state_dict_from_flax), give the
-JAX step's losses; the optimizer alone matches optax.adamw; the trial entry
-point keeps the JAX trial's report cadence. Width: the CPU smoke LM (vocab
-512, E 128, 2 layers, 4 heads, f32) at T = 64.
+JAX step's losses, in f32 (1e-4) and in bf16, the main path's dtype (3e-2);
+the optimizer alone matches optax.adamw; the trial entry point keeps the
+JAX trial's report cadence and refuses head dims above 128. Width: vocab
+512, E 128, 1 layer, 4 heads, at T = 64.
 """
 
 import jax
@@ -59,6 +60,35 @@ def test_three_adamw_steps_match_jax():
     got = [float(port_step(*batch)) for _ in range(3)]
     assert want[2] < want[0]
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+def test_bf16_adamw_steps_match_jax():
+    """The main path's dtype: three AdamW steps of the LM in bf16 (f32
+    parameters, bf16 activations) against the JAX step, at T 64, to the
+    bf16 tolerance 3e-2. The two differ by rounding: among other places, the
+    port's tied head rounds the f32 logit gradient to bf16 once before both
+    of its products (katib_tpu_torch/models/transformer.py:170-173), where
+    JAX takes the f32 cotangent into both products."""
+    lr = 1e-3
+    data = np.random.default_rng(3).integers(0, 512, size=(2, 65), dtype=np.int32)
+    params, opt_state, step_fn, put_batch = jax_make_lm_train_step(
+        JaxConfig(**WIDTH, dtype=jnp.bfloat16), None, lr
+    )
+    state = lm_state_dict_from_flax(jax.device_get(params))
+    batch = put_batch(data[:, :-1], data[:, 1:])
+    want = []
+    for _ in range(3):
+        params, opt_state, loss = step_fn(params, opt_state, *batch)
+        want.append(float(loss))
+
+    model, _, port_step, port_batch = train.make_lm_train_step(
+        TransformerConfig(**WIDTH, dtype=torch.bfloat16), torch.device("cpu"), lr
+    )
+    model.load_state_dict(state)
+    batch = port_batch(data[:, :-1], data[:, 1:])
+    got = [float(port_step(*batch)) for _ in range(3)]
+    assert want[2] < want[0] and got[2] < got[0]
+    np.testing.assert_allclose(got, want, atol=3e-2)
 
 
 def test_lm_loss_matches_optax():
@@ -116,6 +146,11 @@ def test_trial_loss_falls_on_its_fixed_batch():
     train.run_lm_trial(dict(TINY, num_steps="10"), _ctx(store))
     first, last = (float(r.value) for r in store.get_observation_log("t", "loss"))
     assert last < first
+
+
+def test_head_dims_above_128_are_refused_up_front():
+    with pytest.raises(ValueError, match="up to 128"):
+        train.run_lm_trial(dict(TINY, embed_dim="512", num_heads="2", num_steps="1"), None)
 
 
 @pytest.mark.parametrize("axis", ["tensor_parallel", "sequence_parallel"])
