@@ -47,9 +47,25 @@ Phases, all of them on every run, each fatal on failure:
              through the port's CLI on the card (full width, 60 000
              images): every trial must succeed with finite loss and
              accuracy, and Hyperband must run its brackets to the trial
-             budget.
+             budget;
+6. darts   — with torch's default TF32 flags too: three f32 search steps
+             (second order, hessian_mode jvp) and one fd step of a small
+             supernet (2 layers, 2 nodes, 4 channels, batch 16, 32x32,
+             darts.json's 8 operations) on the card against the same steps
+             on the CPU from the same weights and batches (DARTS_TOL); the
+             full-width search step (8 layers, 16 channels, 4 nodes, batch
+             128, or 64 if 128 does not fit) timed with CUDA events, its
+             peak memory, and its device operations and busy share under
+             the profiler; then examples/nas/darts.json through the port's
+             CLI on the card, its num_epochs cut in a copy to
+             DARTS_SEARCH_EPOCHS (its trial must succeed with a finite
+             accuracy and print a Best-Genotype of the search space's
+             operations, two edges a node), and
+             examples/nas/darts-retrain.json on that genotype, cut to 2
+             trials of 2 epochs (both must succeed with finite metrics).
 
-Last, it checks that nothing of JAX or of the JAX package was imported.
+Last, it imports every module of the port and checks that nothing of JAX
+or of the JAX package was imported.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device, or without
 the katib_tpu_torch package beside this script, it exits non-zero and prints
@@ -102,6 +118,20 @@ BF16_STEP_TOL = 3e-2
 # step's f32 hold undone (cuDNN free to convolve in TF32), and fails unless
 # the control misses this tolerance: the check must catch a lost hold.
 MNIST_TOL = 1e-4
+# DARTS search steps, f32, card against CPU: losses, weights and alphas after
+# three second-order steps (and one fd step), absolute; the CPU tests'
+# tolerance against the JAX package's step (tests/test_torch_darts.py).
+DARTS_TOL = 1e-4
+DARTS_PRIMITIVES = ("separable_convolution_3x3", "separable_convolution_5x5", "dilated_convolution_3x3",
+                    "dilated_convolution_5x5", "avg_pooling_3x3", "max_pooling_3x3", "skip_connection")
+# the search network of the DARTS paper at the reference's defaults
+# (katib_tpu_torch/suggest/nas/darts.py): 8 layers, 16 channels, 4 nodes
+DARTS_FULL = {"init_channels": "16", "num_nodes": "4", "stem_multiplier": "3", "batch_size": "128"}
+# examples/nas/darts.json runs 3 epochs of 195 steps; its search step is
+# bound by the host, 1.30-1.38 s at its shape on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md §5), so 585 steps (~800 s) would not fit the phase's
+# 600 s: the phase runs a copy cut to this many epochs, and prints the cut.
+DARTS_SEARCH_EPOCHS = "1"
 JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "katib_tpu")  # never imported by the port
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out")  # git-ignored
 
@@ -723,6 +753,262 @@ def check_hyperband_rungs(record) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the DARTS search and its retraining
+# ---------------------------------------------------------------------------
+
+def phase_darts(torch) -> None:
+    """Runs with torch's default TF32 flags (cuDNN convolutions may use
+    TF32; the trials hold them in f32) and puts back the flags main() set."""
+    card = device_line()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
+    try:
+        for mode, steps in (("jvp", 3), ("fd", 1)):
+            darts_step_check(torch, card, mode, steps)
+        darts_full_width(torch, card)
+        genotype = run_darts_search(torch, card)
+        run_darts_retrain(torch, card, genotype)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _darts_search(torch, device, settings, num_layers):
+    from katib_tpu_torch.models.darts_trainer import DartsSearch
+
+    return DartsSearch(DARTS_PRIMITIVES, num_layers=num_layers, settings=settings, device=torch.device(device))
+
+
+def _darts_batches(torch, n_steps, batch, device):
+    """``n_steps`` (train, valid) batches of synthetic CIFAR-10, NCHW."""
+    from katib_tpu_torch.utils.datasets import load_cifar10
+
+    x, y = load_cifar10("train", n=2 * n_steps * batch)
+    x = torch.tensor(x, device=device).permute(0, 3, 1, 2).contiguous()
+    y = torch.tensor(y, dtype=torch.long, device=device)
+    return [((x[2 * i * batch:(2 * i + 1) * batch], y[2 * i * batch:(2 * i + 1) * batch]),
+             (x[(2 * i + 1) * batch:(2 * i + 2) * batch], y[(2 * i + 1) * batch:(2 * i + 2) * batch]))
+            for i in range(n_steps)]
+
+
+def darts_step_check(torch, card, mode, steps, batch=16) -> None:
+    """Search steps of a small supernet (2 layers, 2 nodes, 4 channels, the
+    8 operations) on the card against the same steps on the CPU: the same
+    seeded weights and alphas, the same batches."""
+    settings = {"init_channels": "4", "num_nodes": "2", "batch_size": str(batch), "hessian_mode": mode}
+    runs = {}
+    for device in ("cpu", "cuda"):
+        search = _darts_search(torch, device, settings, 2)
+        search.build(10)
+        losses = [float(search.step(tb, vb)) for tb, vb in _darts_batches(torch, steps, batch, device)]
+        runs[device] = losses, {k: v.detach().cpu() for k, v in search.model.state_dict().items()}
+    (cpu_losses, cpu_state), (gpu_losses, gpu_state) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) for a, b in zip(cpu_losses, gpu_losses))
+    alpha_err = max(float((cpu_state[k] - gpu_state[k]).abs().max()) for k in cpu_state if k.startswith("alpha_"))
+    weight_err = max(float((cpu_state[k] - gpu_state[k]).abs().max()) for k in cpu_state if not k.startswith("alpha_"))
+    log(f"darts [{card}]: {steps} search step(s), hessian_mode {mode}, f32, batch {batch} 32x32, cuda vs cpu "
+        f"(cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} outside the step): losses max_abs_err={loss_err:.3e}, "
+        f"alphas {alpha_err:.3e}, weights {weight_err:.3e} (tol {DARTS_TOL}); cuda losses {gpu_losses}")
+    check(max(loss_err, alpha_err, weight_err) <= DARTS_TOL, f"the DARTS {mode} step on the card disagrees with the CPU")
+    check(all(math.isfinite(x) for x in gpu_losses), f"DARTS losses are not finite: {gpu_losses}")
+
+
+def darts_full_width(torch, card, steps=5) -> None:
+    """The search step of the DARTS paper's search network (8 layers, 16
+    channels, 4 nodes, the 8 operations) at the reference's batch 128, or
+    64 where 128 does not fit: CUDA-event time per step (median of
+    ``steps``), peak memory, and, under the profiler, device operations and
+    busy share over two steps."""
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for batch in (128, 64):
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            search = _darts_search(torch, "cuda", dict(DARTS_FULL, batch_size=str(batch)), 8)
+            search.build(1000)
+            batches = _darts_batches(torch, steps + 3, batch, "cuda")
+            search.step(*batches[0])  # first use: cuDNN's algorithm choice
+            torch.cuda.synchronize()
+            times, walls = [], []
+            for tb, vb in batches[1:steps + 1]:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                search.step(tb, vb)
+                end.record()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                times.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"darts [{card}]: full width at batch {batch} does not fit ({e}); cut to batch 64, the DARTS paper's")
+            search = batches = None
+            check(batch == 128, "the full-width DARTS step does not fit at batch 64 either")
+    n_weights = sum(p.numel() for p in search.model.weights())
+    log(f"darts [{card}]: full-width search step (8 layers, 16 channels, 4 nodes, 8 operations, "
+        f"{n_weights / 1e6:.2f}M weights, batch {batch}, f32, hessian_mode jvp): {statistics.median(times):.1f} ms/step "
+        f"(CUDA events, median of {steps}: {[round(t, 1) for t in times]}; host wall {[round(w, 1) for w in walls]}); "
+        f"peak memory {peak:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for tb, vb in batches[steps + 1:steps + 3]:
+            search.step(tb, vb)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3 / 2
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "darts_step_profile.txt"), "w") as f:
+        f.write(table)
+    log(f"darts [{card}]: profiler, 2 full-width steps: wall {wall_ms:.1f} ms/step (profiled), device busy "
+        f"{device_ms:.1f} ms/step ({100 * device_ms / wall_ms:.1f}% busy), {len(on_device) / 2:.0f} device ops/step; "
+        f"top device time:\n{table}")
+    del search, batches
+    torch.cuda.empty_cache()
+
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy (the trials print their
+    Best-Genotype there)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(torch, doc, prefix, timeout):
+    """``doc`` through the port's CLI on the card: (rc, wall seconds, the
+    experiment's record, what the run printed)."""
+    import tempfile
+
+    from katib_tpu_torch import cli
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix=prefix, dir=OUT_DIR)
+    path = os.path.join(root, "spec.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(["run", path, "--root", root, "--timeout", str(timeout)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, doc["name"], "experiment.json")) as f:
+        return rc, wall, json.load(f), "".join(tee.lines)
+
+
+class _StepLog:
+    """Collects the search's per-epoch step times (the trainer's log)."""
+
+    def __init__(self):
+        import logging
+
+        self.epochs = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.epochs.append(record.args)
+        self.logger = logging.getLogger("katib_tpu_torch.darts")
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def run_darts_search(torch, card) -> dict:
+    """examples/nas/darts.json through the CLI, its epochs cut to
+    DARTS_SEARCH_EPOCHS; returns the printed genotype."""
+    import ast
+
+    from katib_tpu_torch.api.spec import ExperimentSpec
+    from katib_tpu_torch.suggest.nas.darts import darts_search_space
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "nas", "darts.json")) as f:
+        doc = json.load(f)
+    epochs = next(s for s in doc["algorithm"]["algorithmSettings"] if s["name"] == "num_epochs")
+    log(f"darts [{card}]: examples/nas/darts.json, cut in a copy: num_epochs {epochs['value']} -> "
+        f"{DARTS_SEARCH_EPOCHS} (the phase's time; everything else as the file has it)")
+    epochs["value"] = DARTS_SEARCH_EPOCHS
+    with _StepLog() as steps:
+        rc, wall, record, printed = _run_cli(torch, doc, "darts-search-", 540)
+    status, (trial,) = record["experiment"]["status"], record["trials"]
+    rows = record["logs"][trial["name"]]
+    acc = [float(v) for _, m, v in rows if m == "Validation-accuracy"]
+    loss = [float(v) for _, m, v in rows if m == "Train-loss"]
+    ran = record["experiment"]["spec"]
+    settings = {s["name"]: s["value"] for s in ran["algorithm"]["algorithmSettings"]}
+    log(f"darts [{card}]: examples/nas/darts.json through the port's CLI ({ran['nasConfig']['graphConfig']['numLayers']} "
+        f"layers, {settings}): rc {rc}, {status['condition']} ({status['reason']}), trial {trial['condition']}, "
+        f"experiment wall {wall:.1f}s, trial wall {trial['completionTime'] - trial['startTime']:.1f}s; "
+        f"Validation-accuracy {acc}, Train-loss {loss}")
+    for n, seconds, ms in steps.epochs:
+        log(f"darts [{card}]:   epoch: {n} search steps in {seconds:.1f}s, {ms:.1f} ms/step")
+    check(rc == 0 and status["condition"] == "Succeeded" and trial["condition"] == "Succeeded",
+          f"examples/nas/darts.json did not succeed:\n{trial.get('message', '')}")
+    check(len(acc) == int(settings["num_epochs"]) and all(math.isfinite(a) for a in acc + loss),
+          f"darts.json's metrics are not one finite value per epoch: {acc}, {loss}")
+    genes = [line.split("=", 1)[1] for line in printed.splitlines() if line.startswith("Best-Genotype=")]
+    check(len(genes) == 1, f"darts.json printed {len(genes)} Best-Genotype lines")
+    gene = ast.literal_eval(genes[0])
+    space = set(darts_search_space(ExperimentSpec.from_dict(ran).nas_config))
+    nodes = int(settings["num_nodes"])
+    for key in ("normal", "reduce"):
+        check(len(gene[key]) == nodes, f"{key} gene has {len(gene[key])} nodes, not {nodes}")
+        for i, node in enumerate(gene[key]):
+            check(len(node) == 2 and all(op in space and 0 <= j < 2 + i for op, j in node),
+                  f"{key} gene node {i} is not two edges of the search space: {node}")
+    log(f"darts [{card}]: Best-Genotype={genes[0]}")
+    return genes[0]
+
+
+def run_darts_retrain(torch, card, genotype: str) -> None:
+    """examples/nas/darts-retrain.json on the searched genotype, cut to 2
+    trials of 2 epochs."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "nas",
+                           "darts-retrain.json")) as f:
+        doc = json.load(f)
+    next(p for p in doc["parameters"] if p["name"] == "genotype")["feasibleSpace"]["list"] = [genotype]
+    doc["maxTrialCount"] = 2  # cut from 8
+    doc["parameters"].append({"name": "num_epochs", "parameterType": "categorical",
+                              "feasibleSpace": {"list": ["2"]}})  # cut from the trial's default of 10
+    log(f"darts [{card}]: examples/nas/darts-retrain.json on that genotype, cut: maxTrialCount 8 -> 2, "
+        f"num_epochs 10 -> 2 (a one-value categorical parameter)")
+    rc, wall, record, _ = _run_cli(torch, doc, "darts-retrain-", 300)
+    status, trials = record["experiment"]["status"], record["trials"]
+    log(f"darts [{card}]: retrain: rc {rc}, {status['condition']} ({status['reason']}), "
+        f"{status['trialsSucceeded']}/{len(trials)} trials succeeded, experiment wall {wall:.1f}s")
+    check(rc == 0 and status["condition"] == "Succeeded" and len(trials) == 2, "darts-retrain.json did not succeed")
+    for t in trials:
+        a = {p["name"]: p["value"] for p in t["parameterAssignments"]}
+        rows = record["logs"][t["name"]]
+        values = {m: [float(v) for _, metric, v in rows if metric == m] for m in ("Validation-accuracy", "Train-loss")}
+        log(f"darts [{card}]:   {t['name']} {t['condition']} lr={float(a['lr']):.4f} "
+            f"momentum={float(a['momentum']):.3f} wall={t['completionTime'] - t['startTime']:.1f}s {values}")
+        check(t["condition"] == "Succeeded", f"retrain trial {t['name']} did not succeed:\n{t.get('message', '')}")
+        for metric, vals in values.items():
+            check(len(vals) == 2 and all(math.isfinite(v) for v in vals),
+                  f"retrain trial {t['name']}: {metric} {vals} is not one finite value per epoch")
+
+
+# ---------------------------------------------------------------------------
 
 def device_line() -> str:
     try:
@@ -762,15 +1048,20 @@ def main(argv=None) -> int:
               for name, (src, rep) in REPLACES.items()}
     phases = {"build": lambda: phase_build(torch), "kernels": lambda: phase_kernels(torch, record),
               "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record),
-              "mnist": lambda: phase_mnist(torch)}
+              "mnist": lambda: phase_mnist(torch), "darts": lambda: phase_darts(torch)}
     try:
         for phase, run in phases.items():
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
             log(f"phase {phase}: done in {time.perf_counter() - t0:.1f}s")
+        import pkgutil
+
+        for module in pkgutil.walk_packages(katib_tpu_torch.__path__, "katib_tpu_torch."):
+            __import__(module.name)
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
-        log(f"imports: modules of JAX or of the JAX package loaded: {leaked or 'none'}")
+        log(f"imports: every module of the port imported; modules of JAX or of the JAX package loaded: "
+            f"{leaked or 'none'}")
         check(not leaked, f"the port imported {leaked}")
     except Exception as e:
         import traceback

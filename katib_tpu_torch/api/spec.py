@@ -7,7 +7,7 @@ port's counterpart of that trial where the port has one
 (``controller/experiment.py:PORTED_TRIALS``). A section the port does not
 carry yet raises ``ValidationError`` naming it, as does any other key it
 does not know (keys that start with ``_``, such as ``_comment``, are
-ignored): NAS configs, ``reuseDuplicateResults: true``, a metrics collector
+ignored): ``reuseDuplicateResults: true``, a metrics collector
 other than the default push collector, a resume policy other than
 ``Never``, fair-share fields, and command templates.
 """
@@ -295,6 +295,73 @@ class TrialTemplate:
 
 
 @dataclass
+class NasOperation:
+    """One candidate operation of a NAS search space."""
+
+    operation_type: str
+    parameters: List[ParameterSpec] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "operationType": self.operation_type,
+            "parameters": [p.to_dict() for p in self.parameters],
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "NasOperation":
+        return cls(
+            operation_type=d["operationType"],
+            parameters=[ParameterSpec.from_dict(p) for p in d.get("parameters", [])],
+        )
+
+
+@dataclass
+class GraphConfig:
+    num_layers: Optional[int] = None
+    input_sizes: Optional[List[int]] = None
+    output_sizes: Optional[List[int]] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {}
+        if self.num_layers is not None:
+            d["numLayers"] = self.num_layers
+        if self.input_sizes is not None:
+            d["inputSizes"] = list(self.input_sizes)
+        if self.output_sizes is not None:
+            d["outputSizes"] = list(self.output_sizes)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "GraphConfig":
+        return cls(
+            num_layers=d.get("numLayers"),
+            input_sizes=d.get("inputSizes"),
+            output_sizes=d.get("outputSizes"),
+        )
+
+
+@dataclass
+class NasConfig:
+    """A NAS experiment's search space: the graph and its operations."""
+
+    graph_config: GraphConfig = field(default_factory=GraphConfig)
+    operations: List[NasOperation] = field(default_factory=list)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "graphConfig": self.graph_config.to_dict(),
+            "operations": [o.to_dict() for o in self.operations],
+        }
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "NasConfig":
+        return cls(
+            graph_config=GraphConfig.from_dict(d.get("graphConfig", {})),
+            operations=[NasOperation.from_dict(o) for o in d.get("operations", [])],
+        )
+
+
+@dataclass
 class ExperimentSpec:
     name: str = ""
     parameters: List[ParameterSpec] = field(default_factory=list)
@@ -305,6 +372,7 @@ class ExperimentSpec:
     max_trial_count: Optional[int] = None
     max_failed_trial_count: Optional[int] = None
     early_stopping: Optional[EarlyStoppingSpec] = None
+    nas_config: Optional[NasConfig] = None
 
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
@@ -323,6 +391,8 @@ class ExperimentSpec:
         ):
             if value is not None:
                 d[key] = value
+        if self.nas_config:
+            d["nasConfig"] = self.nas_config.to_dict()
         return d
 
     @classmethod
@@ -338,6 +408,7 @@ class ExperimentSpec:
             max_trial_count=d.get("maxTrialCount"),
             max_failed_trial_count=d.get("maxFailedTrialCount"),
             early_stopping=EarlyStoppingSpec.from_dict(d["earlyStopping"]) if d.get("earlyStopping") else None,
+            nas_config=NasConfig.from_dict(d["nasConfig"]) if d.get("nasConfig") else None,
         )
 
     @classmethod
@@ -347,7 +418,7 @@ class ExperimentSpec:
 
 _CARRIED_KEYS = frozenset({
     "name", "parameters", "objective", "algorithm", "trialTemplate", "parallelTrialCount",
-    "maxTrialCount", "maxFailedTrialCount", "earlyStopping",
+    "maxTrialCount", "maxFailedTrialCount", "earlyStopping", "nasConfig",
 })
 
 
@@ -368,7 +439,6 @@ def refuse_sections_not_carried(d: Dict[str, Any]) -> None:
     ``reuseDuplicateResults: false``, ``fairShareWeight: 1``, no priority
     class) are accepted."""
     refused = {
-        "nasConfig": bool,
         "reuseDuplicateResults": bool,
         "metricsCollectorSpec": lambda v: not _default_collector(v),
         "resumePolicy": lambda v: v not in (None, "Never"),

@@ -65,6 +65,9 @@ PORT_PACKAGE = "katib_tpu_torch"
 PORTED_TRIALS = frozenset({
     "parallel.train:run_lm_trial",
     "models.mnist_cnn:run_mnist_trial",
+    "models.darts_trainer:run_darts_trial",
+    "models.darts_trainer:run_darts_hpo_trial",
+    "models.darts_derived:run_darts_retrain_trial",
 })
 
 
@@ -98,11 +101,17 @@ def validate_spec(spec: ExperimentSpec, n_devices: int) -> None:
     if not spec.name:
         raise ValidationError("experiment name is empty")
     names = [p.name for p in spec.parameters]
-    if not names or len(set(names)) != len(names):
-        raise ValidationError(f"parameters must be non-empty with unique names, got {names}")
+    if spec.nas_config is not None and names:
+        raise ValidationError("only one of parameters and nasConfig can be specified")
+    if (spec.nas_config is None and not names) or len(set(names)) != len(names):
+        raise ValidationError(f"parameters (or nasConfig) must be non-empty with unique names, got {names}")
     obj = spec.objective
     if obj.type not in (ObjectiveType.MINIMIZE, ObjectiveType.MAXIMIZE) or not obj.objective_metric_name:
         raise ValidationError("objective needs type minimize|maximize and objectiveMetricName")
+    try:
+        resolve_entry_point(spec.trial_template)
+    except (ImportError, AttributeError) as e:
+        raise ValidationError(f"entryPoint {spec.trial_template.entry_point!r} does not resolve: {e}") from e
     algo = spec.algorithm.algorithm_name
     if algo not in suggest_base.registered_algorithms():
         raise ValidationError(
@@ -117,10 +126,6 @@ def validate_spec(spec: ExperimentSpec, n_devices: int) -> None:
         value = getattr(spec, key)
         if value is not None and value < (0 if key == "max_failed_trial_count" else 1):
             raise ValidationError(f"{key} must be positive, got {value}")
-    try:
-        resolve_entry_point(spec.trial_template)
-    except (ImportError, AttributeError) as e:
-        raise ValidationError(f"entryPoint {spec.trial_template.entry_point!r} does not resolve: {e}") from e
     if spec.trial_template.function is None and res.num_devices > 1:
         trial = port_entry_point(spec.trial_template.entry_point)
         if trial.startswith(PORT_PACKAGE + ".") and trial[len(PORT_PACKAGE) + 1:] in PORTED_TRIALS:

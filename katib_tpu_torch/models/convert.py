@@ -1,6 +1,7 @@
 """Carry the JAX package's parameters into the port's models: the LM's
-(``lm_state_dict_from_flax``) and the MNIST network's
-(``mnist_params_from_flax``).
+(``lm_state_dict_from_flax``), the MNIST network's
+(``mnist_params_from_flax``), and the DARTS supernet's and derived
+network's (``darts_params_from_flax``).
 
 The input is a flax parameter tree (``katib_tpu/models/transformer.py``,
 ``katib_tpu/models/mnist_cnn.py``) with numpy arrays as leaves; the output
@@ -63,4 +64,37 @@ def mnist_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
     out["fc1.bias"] = _t(params["Dense_0"]["bias"])
     out["fc2.weight"] = _t(np.asarray(params["Dense_1"]["kernel"]).T)
     out["fc2.bias"] = _t(params["Dense_1"]["bias"])
+    return out
+
+
+def darts_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A DARTS supernet's (alphas included) or derived network's flax
+    parameters as a ``state_dict`` of the port's ``DartsSupernet`` or
+    ``DerivedNetwork``, whose modules carry the flax tree's names. Paths
+    join with "."; a ``StdConv``'s ``MatmulConv_0`` is its ``conv``;
+    ``alpha_normal_3`` is ``alpha_normal.3``, copied as it is. Kernels
+    become weights: convolutions [kh, kw, C, F] -> [F, C, kh, kw]
+    (depthwise [kh, kw, 1, C] -> [C, 1, kh, kw]), dense [in, out] -> [out,
+    in]; biases as they are."""
+    if "params" in params and "stem" not in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], path: tuple) -> None:
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(value, path + ("conv" if name == "MatmulConv_0" else name,))
+                continue
+            leaf = np.asarray(value)
+            if name.startswith("alpha_"):
+                kind, node = name.rsplit("_", 1)
+                out[".".join(path + (kind, node))] = _t(leaf)
+            elif name == "kernel":
+                out[".".join(path + ("weight",))] = _t(leaf.transpose(3, 2, 0, 1) if leaf.ndim == 4 else leaf.T)
+            elif name == "bias":
+                out[".".join(path + ("bias",))] = _t(leaf)
+            else:
+                raise KeyError(f"unexpected DARTS parameter {'/'.join(path + (name,))}")
+
+    walk(params, ())
     return out

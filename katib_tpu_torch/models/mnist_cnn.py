@@ -12,17 +12,16 @@ packing slice.
 
 from __future__ import annotations
 
-import contextlib
-import functools
-import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.datasets import batch_indices, load_mnist
+from ..utils.backend import trial_device
+from ..utils.datasets import batch_indices, load_mnist, split_on_device
+from ..utils.precision import f32_convolutions
 
 _LECUN_TRUNC = 0.87962566103423978  # stddev of a standard normal truncated to [-2, 2]
 
@@ -55,37 +54,6 @@ class MnistCNN(nn.Module):
         return self.fc2(F.relu(self.fc1(x.flatten(1))))
 
 
-class _HeldFlag:
-    """Holds ``torch.backends.cudnn.allow_tf32`` False while any holder is
-    inside ``hold()``. The flag is process-wide and trials run on threads:
-    the first holder saves it and the last one puts it back."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._holders = 0
-        self._saved = True
-
-    @contextlib.contextmanager
-    def hold(self):
-        with self._lock:
-            if self._holders == 0:
-                self._saved = torch.backends.cudnn.allow_tf32
-            self._holders += 1
-            torch.backends.cudnn.allow_tf32 = False
-        try:
-            yield
-        finally:
-            with self._lock:
-                self._holders -= 1
-                if self._holders == 0:
-                    torch.backends.cudnn.allow_tf32 = self._saved
-
-
-# torch lets cuDNN convolutions run in TF32 by default; the JAX reference
-# convolves in full f32, and so does the trial.
-f32_convolutions = _HeldFlag()
-
-
 def make_mnist_train_step(model: MnistCNN, lr: float, momentum: float) -> Callable:
     """``step(bx, by)``: one SGD-with-momentum step on the mean softmax
     cross-entropy, its convolutions in full f32; returns the loss before the
@@ -104,26 +72,6 @@ def make_mnist_train_step(model: MnistCNN, lr: float, momentum: float) -> Callab
     return step
 
 
-_data_lock = threading.Lock()
-
-
-@functools.lru_cache(maxsize=4)
-def _cached_mnist(split: str, n: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
-    x, y = load_mnist(split, n=n)
-    x.setflags(write=False)
-    y.setflags(write=False)
-    return x, y
-
-
-def _mnist(split: str, n: Optional[int], device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The split on ``device``. Every trial of a process trains on the same
-    data, so it is made once (60 000 images take seconds of NumPy) and
-    kept, read-only, for the next trials."""
-    with _data_lock:
-        x, y = _cached_mnist(split, n)
-    return torch.tensor(x, device=device), torch.tensor(y, dtype=torch.long, device=device)
-
-
 def run_mnist_trial(assignments: Dict[str, str], ctx=None) -> None:
     """Entry point: ``lr`` and ``momentum`` (and ``batch_size``,
     ``num_epochs``, ``num_train_examples``), with the JAX trial's defaults;
@@ -137,15 +85,9 @@ def run_mnist_trial(assignments: Dict[str, str], ctx=None) -> None:
     num_epochs = int(assignments.get("num_epochs", "1"))
     n_train = int(assignments.get("num_train_examples", "0")) or None
 
-    devices = ctx.torch_devices() if ctx is not None else []
-    if devices:
-        device = devices[0]
-    else:
-        from ..utils.backend import require_devices
-
-        device = require_devices()[0]
-    x, y = _mnist("train", n_train, device)
-    x_test, y_test = _mnist("test", n_train // 5 if n_train else None, device)
+    device = trial_device(ctx)
+    x, y = split_on_device(load_mnist, "train", n_train, device)
+    x_test, y_test = split_on_device(load_mnist, "test", n_train // 5 if n_train else None, device)
 
     model = MnistCNN().to(device)
     step = make_mnist_train_step(model, lr, momentum)

@@ -89,6 +89,13 @@ def require_devices(timeout_seconds: float = 15.0) -> List[torch.device]:
     return devices
 
 
+def trial_device(ctx) -> torch.device:
+    """The first device the controller gave the trial, else the first CUDA
+    device (:func:`require_devices`, which raises without one)."""
+    devices = ctx.torch_devices() if ctx is not None else []
+    return devices[0] if devices else require_devices()[0]
+
+
 def probe_verdict() -> Optional[bool]:
     """True (devices found), False (probe failed), None (not yet probed)."""
     with _state_lock:

@@ -1,26 +1,34 @@
-"""Synthetic MNIST — the port's own copy of the MNIST half of
+"""Synthetic MNIST and CIFAR-10 — the port's own copy of
 ``katib_tpu/utils/datasets.py`` (``_prototype_bank``, ``_synthetic_images``,
-``load_mnist``, and the batch order of ``batches``).
+``load_mnist``, ``load_cifar10``, and the batch order of ``batches``).
 
 NumPy only, with the same seeds and the same calls in the same order, so
 the images, labels and batch order are bit-identical to the JAX package's.
+Real CIFAR-10 is read only from the local ``.npz`` that ``KATIB_TPU_CIFAR10``
+names (arrays ``x_train``, ``y_train``, ``x_test``, ``y_test``), as in the
+JAX package; nothing is downloaded.
 The stand-in is calibrated to discriminate: each class is a bank of
 prototype patterns mixed per sample, neighbouring classes share their
 coarse component, and samples are shifted, scaled, overlaid with another
 class's pattern and noised. The difficulty is fixed at the JAX package's
 defaults, the values it takes when no ``KATIB_TPU_SYNTH_*`` variable is set
-(and so no training label is redrawn at random).
+(and so no training label is redrawn at random, CIFAR-10's included).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+import os
+import threading
+from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
 SYNTH_NOISE = 0.45  # per-pixel Gaussian noise
 SYNTH_DISTRACTOR = 0.3  # weight of the other class's overlaid pattern
 SYNTH_VARIANTS = 4  # prototype patterns per class
+CIFAR10_ENV = "KATIB_TPU_CIFAR10"  # path to a local .npz of CIFAR-10
 
 
 def _prototype_bank(num_classes: int, image_size: int, channels: int, variants: int) -> np.ndarray:
@@ -72,6 +80,50 @@ def load_mnist(split: str = "train", n: Optional[int] = None, seed: int = 0) -> 
     rng = np.random.default_rng(seed if split == "train" else seed + 1)
     count = n if n is not None else (60000 if split == "train" else 10000)
     return _synthetic_images(count, 10, 28, 1, rng)
+
+
+def load_cifar10(split: str = "train", n: Optional[int] = None, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """CIFAR-10: [n, 32, 32, 3] f32 (NHWC) and int32 labels; the ``.npz``
+    that ``KATIB_TPU_CIFAR10`` names if that file exists (NCHW arrays are
+    made NHWC, bytes scaled to [-1, 1]), else 50 000 train and 10 000 test
+    synthetic images unless ``n`` is given."""
+    path = os.environ.get(CIFAR10_ENV)
+    if path and os.path.exists(path):
+        data = np.load(path)
+        x = data[f"x_{split}"].astype(np.float32)
+        y = data[f"y_{split}"].astype(np.int32).reshape(-1)
+        if x.ndim == 4 and x.shape[1] == 3:
+            x = x.transpose(0, 2, 3, 1)
+        if x.max() > 2.0:
+            x = (x / 127.5) - 1.0
+        if n is not None:
+            x, y = x[:n], y[:n]
+        return x, y
+    rng = np.random.default_rng(seed if split == "train" else seed + 1)
+    count = n if n is not None else (50000 if split == "train" else 10000)
+    return _synthetic_images(count, 10, 32, 3, rng)
+
+
+_split_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=4)
+def _cached_split(load: Callable, split: str, n: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+    x, y = load(split, n=n)
+    x.setflags(write=False)
+    y.setflags(write=False)
+    return x, y
+
+
+def split_on_device(load: Callable, split: str, n: Optional[int],
+                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``load(split, n=n)`` as (f32 images, int64 labels) on ``device``.
+    Every trial of a process trains on the same data, so it is made once
+    (60 000 images take seconds of NumPy) and kept, read-only, for the next
+    trials."""
+    with _split_lock:
+        x, y = _cached_split(load, split, n)
+    return torch.tensor(x, device=device), torch.tensor(y, dtype=torch.long, device=device)
 
 
 def batch_indices(n: int, batch_size: int, rng: np.random.Generator) -> np.ndarray:

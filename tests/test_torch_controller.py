@@ -146,7 +146,6 @@ def test_command_templates_are_refused():
 
 
 @pytest.mark.parametrize("section,value", [
-    ("nasConfig", {"graphConfig": {"numLayers": 2}}),
     ("reuseDuplicateResults", True),
     ("metricsCollectorSpec", {"collector": {"kind": "StdOut"}}),
     ("resumePolicy", "LongRunning"),
@@ -187,7 +186,7 @@ def test_jax_package_entry_points_resolve_to_the_port(monkeypatch):
     fn = ce.resolve_entry_point(spec.TrialTemplate(entry_point="katib_tpu.models.mnist_cnn:run_mnist_trial"))
     assert fn.__module__ == "katib_tpu_torch.models.mnist_cnn"
     monkeypatch.setattr(ce.importlib, "import_module", lambda name: pytest.fail(f"imported {name}"))
-    for entry in ("katib_tpu.models.darts_trainer:run_darts_trial", "katib_tpu:main"):
+    for entry in ("katib_tpu.models.enas_child:run_enas_trial", "katib_tpu:main"):
         with pytest.raises(ce.ValidationError, match="not yet ported"):
             ce.resolve_entry_point(spec.TrialTemplate(entry_point=entry))
 
@@ -379,6 +378,7 @@ def test_a_rung_that_cannot_complete_fails_the_experiment():
     (lambda d: d["trialTemplate"].update(entryPoint="katib_tpu_torch.parallel.train"), "module:function"),
     (lambda d: d["trialTemplate"].update(entryPoint="katib_tpu_torch.parallel.train:nope"), "does not resolve"),
     (lambda d: d.update(parameters=[]), "parameters"),
+    (lambda d: d.update(nasConfig={"graphConfig": {"numLayers": 2}}), "only one of parameters and nasConfig"),
     (lambda d: d["objective"].update(type="sideways"), "sideways"),
 ])
 def test_invalid_specs_are_refused(edit, match):
@@ -391,7 +391,10 @@ def test_invalid_specs_are_refused(edit, match):
 
 @pytest.mark.parametrize("entry_point", ["katib_tpu.parallel.train:run_lm_trial",
                                          "katib_tpu_torch.parallel.train:run_lm_trial",
-                                         "katib_tpu.models.mnist_cnn:run_mnist_trial"])
+                                         "katib_tpu.models.mnist_cnn:run_mnist_trial",
+                                         "katib_tpu.models.darts_trainer:run_darts_trial",
+                                         "katib_tpu.models.darts_trainer:run_darts_hpo_trial",
+                                         "katib_tpu.models.darts_derived:run_darts_retrain_trial"])
 def test_ported_trials_refuse_more_than_one_card(entry_point):
     """The ported trials train on one card: a spec that gives one several
     is refused, not run on the first while the others idle."""
