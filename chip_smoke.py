@@ -58,11 +58,32 @@ Phases, all of them on every run, each fatal on failure:
              peak memory, and its device operations and busy share under
              the profiler; then examples/nas/darts.json through the port's
              CLI on the card, its num_epochs cut in a copy to
-             DARTS_SEARCH_EPOCHS (its trial must succeed with a finite
+             DARTS_SEARCH_EPOCHS and its images to DARTS_SEARCH_EXAMPLES
+             (its trial must succeed with a finite
              accuracy and print a Best-Genotype of the search space's
              operations, two edges a node), and
              examples/nas/darts-retrain.json on that genotype, cut to 2
-             trials of 2 epochs (both must succeed with finite metrics).
+             trials of 2 epochs (both must succeed with finite metrics);
+7. enas    — with torch's default TF32 flags too: three Adam steps of a
+             small ENAS child (every op kind, skips to the image, a
+             reduction whose map is padded beside larger ones, depth
+             multiplier 2) on the card against the CPU, from the same
+             weights, batches and dropout masks (ENAS_TOL), and an arc
+             whose 3x3 pool meets a 2x2 map (NaN logits and argmax 0 on
+             both, as in JAX); the controller at enas.json's settings on
+             both: the same arcs from the same seed, log_prob within
+             CONTROLLER_LOGP_TOL, the parameters after one
+             controller_train_steps round within CONTROLLER_TOL, and the
+             round's time; the full-width child step (enas.json's 8
+             layers, 32x32x3, batch 128) of the widest arc and of an arc a
+             fresh controller samples, timed with CUDA events, its peak
+             memory, and its device operations and busy share under the
+             profiler; then examples/nas/enas.json through the port's CLI
+             on the card, cut in a copy to ENAS_MAX_TRIALS trials (the
+             cut is printed): every trial must succeed with a finite
+             accuracy each epoch (and a finite loss unless its network
+             averages an empty map), and the controller's parameters must
+             change from one suggestion round to the next.
 
 Last, it imports every module of the port and checks that nothing of JAX
 or of the JAX package was imported.
@@ -132,6 +153,26 @@ DARTS_FULL = {"init_channels": "16", "num_nodes": "4", "stem_multiplier": "3", "
 # 700.00 W (PERF.md §5), so 585 steps (~800 s) would not fit the phase's
 # 600 s: the phase runs a copy cut to this many epochs, and prints the cut.
 DARTS_SEARCH_EPOCHS = "1"
+# ...and to this many of CIFAR-10's 50 000 training images (6 400 to search
+# on, 6 400 to validate: 50 search steps of 128, ~70 s instead of ~270 s),
+# to leave the script room for phase enas; printed with the epochs' cut.
+DARTS_SEARCH_EXAMPLES = "12800"
+# ENAS child steps, f32, card against CPU: losses and parameters after three
+# Adam steps, absolute; the CPU tests' tolerance against the JAX package's
+# step (tests/test_torch_enas.py) and MNIST_TOL.
+ENAS_TOL = 1e-4
+# ENAS controller, card against CPU: log_prob of the same arcs within
+# CONTROLLER_LOGP_TOL + 1e-6 |log_prob| (the CPU tests' tolerance for the
+# scores: log_prob sums 36 terms to ~42 at enas.json's shape, where one f32
+# unit is 3.8e-6) and the parameters after one round of
+# controller_train_steps Adam steps (their tolerance for a round).
+CONTROLLER_LOGP_TOL = 1e-5
+CONTROLLER_TOL = 1e-4
+# examples/nas/enas.json runs 12 trials of 3 epochs (1053 steps at batch
+# 128); the phase runs a copy cut to this many trials (the time of the
+# script, see PERF.md), so the controller is asked at least twice and
+# trains between rounds; the cut is printed.
+ENAS_MAX_TRIALS = 6
 JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "katib_tpu")  # never imported by the port
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out")  # git-ignored
 
@@ -935,7 +976,8 @@ class _StepLog:
 
 def run_darts_search(torch, card) -> dict:
     """examples/nas/darts.json through the CLI, its epochs cut to
-    DARTS_SEARCH_EPOCHS; returns the printed genotype."""
+    DARTS_SEARCH_EPOCHS and its images to DARTS_SEARCH_EXAMPLES; returns
+    the printed genotype."""
     import ast
 
     from katib_tpu_torch.api.spec import ExperimentSpec
@@ -945,8 +987,10 @@ def run_darts_search(torch, card) -> dict:
         doc = json.load(f)
     epochs = next(s for s in doc["algorithm"]["algorithmSettings"] if s["name"] == "num_epochs")
     log(f"darts [{card}]: examples/nas/darts.json, cut in a copy: num_epochs {epochs['value']} -> "
-        f"{DARTS_SEARCH_EPOCHS} (the phase's time; everything else as the file has it)")
+        f"{DARTS_SEARCH_EPOCHS}, num_train_examples 50000 -> {DARTS_SEARCH_EXAMPLES} (an added setting; the "
+        f"script's time; everything else as the file has it)")
     epochs["value"] = DARTS_SEARCH_EPOCHS
+    doc["algorithm"]["algorithmSettings"].append({"name": "num_train_examples", "value": DARTS_SEARCH_EXAMPLES})
     with _StepLog() as steps:
         rc, wall, record, printed = _run_cli(torch, doc, "darts-search-", 540)
     status, (trial,) = record["experiment"]["status"], record["trials"]
@@ -1009,6 +1053,293 @@ def run_darts_retrain(torch, card, genotype: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the ENAS search
+# ---------------------------------------------------------------------------
+
+def phase_enas(torch) -> None:
+    """Runs with torch's default TF32 flags (the trial holds its
+    convolutions in f32) and puts back the flags main() set."""
+    card = device_line()
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
+    try:
+        enas_child_check(torch, card)
+        enas_empty_map_check(torch, card)
+        enas_controller_check(torch, card)
+        for label, arc in (("widest", enas_widest_arc()), ("sampled", enas_sampled_arc(torch))):
+            enas_full_width(torch, card, label, arc)
+        run_enas_search(torch, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+ENAS_SMALL_OPS = {  # every op kind of the child, depth multiplier 2
+    "0": {"opt_type": "convolution", "opt_params": {"filter_size": "3", "num_filter": "16"}},
+    "1": {"opt_type": "convolution", "opt_params": {"filter_size": "5", "num_filter": "8"}},
+    "2": {"opt_type": "separable_convolution",
+          "opt_params": {"filter_size": "3", "num_filter": "16", "depth_multiplier": "2"}},
+    "3": {"opt_type": "depthwise_convolution", "opt_params": {"filter_size": "3", "depth_multiplier": "2"}},
+    "4": {"opt_type": "reduction", "opt_params": {"reduction_type": "max_pooling", "pool_size": 2}},
+    "5": {"opt_type": "reduction", "opt_params": {"reduction_type": "avg_pooling", "pool_size": 3}},
+}
+# skips to the image (layers 2, 4 and 6); layer 3's 16x16 map and layer
+# 5's 10x10 one padded beside 32x32 maps
+ENAS_SMALL_ARCH = [[0], [2, 1], [4, 0, 1], [1, 1, 0, 1], [5, 0, 1, 0, 1], [3, 1, 0, 0, 1, 1]]
+
+
+def enas_child_check(torch, card, steps=3, batch=16) -> None:
+    """Three Adam steps of a small child (ENAS_SMALL_ARCH) on the card
+    against the CPU, from the same seeded weights, batches and dropout
+    masks: the losses, every step's gradients, and the parameters after
+    the steps. Adam moves an element by about lr * sign(g) where its
+    gradient g is rounding noise: the convolutions' biases (a batch norm
+    follows each, so their gradient is zero up to rounding and they do not
+    change the output) and elements whose gradient cancels below 1e-6 at
+    some step; those parameters are held to the losses and gradients
+    alone, and their count is printed."""
+    from katib_tpu_torch.models import enas_child
+    from katib_tpu_torch.utils.datasets import load_cifar10
+
+    x, y = load_cifar10("train", n=steps * batch)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = enas_child.EnasChildNet(ENAS_SMALL_ARCH, ENAS_SMALL_OPS).to(device)
+        step = enas_child.make_child_train_step(model, 0.002, torch.Generator().manual_seed(0))
+        xd = torch.tensor(x, device=device).permute(0, 3, 1, 2).contiguous()
+        yd = torch.tensor(y, dtype=torch.long, device=device)
+        losses, grads = [], []
+        for i in range(steps):
+            losses.append(float(step(xd[i * batch:(i + 1) * batch], yd[i * batch:(i + 1) * batch])))
+            grads.append({n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()})
+        runs[device] = losses, grads, {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    (cpu_losses, cpu_grads, cpu_state), (gpu_losses, gpu_grads, gpu_state) = runs["cpu"], runs["cuda"]
+    loss_err = max(abs(a - b) for a, b in zip(cpu_losses, gpu_losses))
+    grad_err = max(float((a[n] - b[n]).abs().max()) for a, b in zip(cpu_grads, gpu_grads) for n in a)
+    held = {n: torch.stack([g[n].abs() >= 1e-6 for g in cpu_grads]).all(0) & (not n.endswith("_conv.bias"))
+            & (not n.endswith("_dw.bias")) & (not n.endswith("_pw.bias")) for n in cpu_state}
+    param_err = float(torch.cat([(cpu_state[n] - gpu_state[n])[held[n]].abs() for n in cpu_state]).max())
+    n_held, n_all = sum(int(h.sum()) for h in held.values()), sum(h.numel() for h in held.values())
+    shapes = [layer.shape_out for layer in enas_child.EnasChildNet(ENAS_SMALL_ARCH, ENAS_SMALL_OPS).plan]
+    log(f"enas [{card}]: child {ENAS_SMALL_ARCH} (layer shapes {shapes}), {steps} Adam steps, f32, dropout 0.4, "
+        f"batch {batch} 32x32, cuda vs cpu (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} outside the step): "
+        f"losses max_abs_err={loss_err:.3e}, gradients {grad_err:.3e}, params {param_err:.3e} over {n_held} of "
+        f"{n_all} elements (tol {ENAS_TOL}); cuda losses {gpu_losses}")
+    check(max(loss_err, grad_err, param_err) <= ENAS_TOL, "the ENAS child step on the card disagrees with the CPU")
+    check(all(math.isfinite(v) for v in gpu_losses), f"ENAS child losses are not finite: {gpu_losses}")
+
+
+def enas_empty_map_check(torch, card) -> None:
+    """A 3x3 pool over a 2x2 map: an empty map, the head's mean NaN, and
+    argmax 0 (as jnp.argmax of NaN), on the card as on the CPU."""
+    from katib_tpu_torch.models import enas_child
+
+    x = torch.randn(4, 3, 2, 2, generator=torch.Generator().manual_seed(0))
+    ops = {"0": {"opt_type": "reduction", "opt_params": {"reduction_type": "max_pooling", "pool_size": 3}}}
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = enas_child.EnasChildNet([[0]], ops, input_shape=(3, 2, 2)).to(device)
+        logits = model(x.to(device))
+        out[device] = (bool(torch.isnan(logits).all()), logits.argmax(-1).tolist())
+    log(f"enas [{card}]: arc [[3x3 max pool]] on 2x2 images: logits all NaN, argmax: cpu {out['cpu']}, "
+        f"cuda {out['cuda']}")
+    check(out["cpu"] == out["cuda"] == (True, [0, 0, 0, 0]), "the empty-map arc differs between card and CPU")
+
+
+def _enas_spec(torch):
+    from katib_tpu_torch.api.spec import ExperimentSpec
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "nas", "enas.json")) as f:
+        return ExperimentSpec.from_json(f.read())
+
+
+def _enas_controller(torch, spec, device):
+    from katib_tpu_torch.suggest.nas import enas
+
+    settings = enas.parse_enas_settings(spec)
+    return settings, enas.EnasController(
+        len(enas.expand_operations(spec.nas_config)), spec.nas_config.graph_config.num_layers,
+        settings["controller_hidden_size"], settings["controller_temperature"], settings["controller_tanh_const"],
+        settings["controller_skip_target"], torch.Generator().manual_seed(0)).to(device)
+
+
+def enas_controller_check(torch, card, arcs=3) -> None:
+    """The controller at enas.json's settings on the card and on the CPU:
+    arcs from the same generator seed, their log_prob, then one round of
+    controller_train_steps from the same seed (and so the same draws)."""
+    from katib_tpu_torch.suggest.nas import enas
+
+    spec = _enas_spec(torch)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        settings, controller = _enas_controller(torch, spec, device)
+        generator = torch.Generator().manual_seed(1)
+        sampled = [controller.sample_arc(generator) for _ in range(arcs)]
+        log_probs = [float(controller.score_arc(a)[0].detach()) for a in sampled]
+        optimizer = enas.make_controller_optimizer(controller, settings["controller_learning_rate"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        baseline = enas.train_controller(controller, optimizer, 0.0, 0.5, settings, generator)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[device] = sampled, log_probs, {k: v.detach().cpu() for k, v in controller.state_dict().items()}, ms
+    (cpu_arcs, cpu_lp, cpu_state, cpu_ms), (gpu_arcs, gpu_lp, gpu_state, gpu_ms) = runs["cpu"], runs["cuda"]
+    lp_err = max(abs(a - b) - 1e-6 * abs(a) for a, b in zip(cpu_lp, gpu_lp))
+    param_err = max(float((cpu_state[k] - gpu_state[k]).abs().max()) for k in cpu_state)
+    steps = settings["controller_train_steps"]
+    log(f"enas [{card}]: controller (8 layers, hidden 64, 18 operations): {arcs} arcs from seed 1 equal on card and "
+        f"CPU: {cpu_arcs == gpu_arcs}; log_prob {gpu_lp}, max |err| - 1e-6 |log_prob| = {lp_err:.3e} (tol {CONTROLLER_LOGP_TOL}); "
+        f"one round of {steps} steps: params max_abs_err={param_err:.3e} (tol {CONTROLLER_TOL}); round {gpu_ms:.1f} ms "
+        f"on the card ({gpu_ms / steps:.2f} ms a step), {cpu_ms:.1f} ms on the CPU; arcs {gpu_arcs}")
+    check(cpu_arcs == gpu_arcs, f"the controller samples other arcs on the card: {gpu_arcs} vs {cpu_arcs}")
+    check(lp_err <= CONTROLLER_LOGP_TOL, "the controller's log_prob on the card disagrees with the CPU")
+    check(param_err <= CONTROLLER_TOL, "the controller's round on the card disagrees with the CPU")
+
+
+def enas_widest_arc():
+    """Every layer a 5x5 convolution of 64 filters (enas.json's operation 5),
+    every skip bit on."""
+    return [[5] + [1] * layer for layer in range(8)]
+
+
+def enas_sampled_arc(torch):
+    """The first arc a fresh controller (enas.json, seed 0) samples."""
+    _, controller = _enas_controller(torch, _enas_spec(torch), "cuda")
+    flat = controller.sample_arc(torch.Generator().manual_seed(0))
+    return [flat[layer * (layer + 1) // 2:(layer + 1) * (layer + 2) // 2] for layer in range(8)]
+
+
+def enas_step_flops(model, batch) -> float:
+    """Forward and backward products of the convolutions: 3x the
+    forward's 2 * N * H * W * C_in / groups * C_out * k * k."""
+    total = 0.0
+    for name, module in model.named_modules():
+        if hasattr(module, "groups"):  # a SameConv
+            layer = model.plan[int(name[len("layer"):].split("_")[0]) - 1]
+            c_out, c_in_g, k, _ = module.weight.shape
+            h, w = layer.shape_out[1:]
+            total += 2.0 * batch * h * w * c_in_g * c_out * k * k
+    return 3 * total
+
+
+def enas_full_width(torch, card, label, arch, batch=128, steps=5) -> None:
+    """The child step of ``arch`` at enas.json's graph (8 layers, 32x32x3)
+    and the trial's batch of 128: CUDA-event time per step (median of
+    ``steps``), peak memory, and, under the profiler, device operations and
+    busy share over two steps."""
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from katib_tpu_torch.models import enas_child
+    from katib_tpu_torch.suggest.nas import enas
+    from katib_tpu_torch.utils.datasets import load_cifar10
+
+    ops = enas.expand_operations(_enas_spec(torch).nas_config)
+    embedding = {str(layer[0]): ops[layer[0]] for layer in arch}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = enas_child.EnasChildNet(arch, embedding).to("cuda")
+    step = enas_child.make_child_train_step(model, 0.002, torch.Generator().manual_seed(0))
+    x, y = load_cifar10("train", n=batch)
+    bx = torch.tensor(x, device="cuda").permute(0, 3, 1, 2).contiguous()
+    by = torch.tensor(y, dtype=torch.long, device="cuda")
+    step(bx, by)  # first use: cuDNN's algorithm choice
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(bx, by)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(bx, by)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3 / 2
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"enas_{label}_step_profile.txt"), "w") as f:
+        f.write(table)
+    ms = statistics.median(times)
+    flops = enas_step_flops(model, batch)
+    shapes = [layer.shape_in for layer in model.plan]
+    log(f"enas [{card}]: full-width child step, {label} arc {arch} (layer inputs (C, H, W) {shapes}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M weights, batch {batch}, f32): {ms:.2f} ms/step "
+        f"(CUDA events, median of {steps}: {[round(t, 2) for t in times]}); convolution products "
+        f"{flops / 1e12:.3f} TFLOP a step = {flops / ms / 1e9:.1f} TFLOP/s; peak memory {peak:.2f} GiB")
+    log(f"enas [{card}]: profiler, 2 {label} steps: wall {wall_ms:.2f} ms/step (profiled), device busy "
+        f"{device_ms:.2f} ms/step ({100 * device_ms / wall_ms:.1f}% busy), {len(on_device) / 2:.0f} device ops/step; "
+        f"top device time:\n{table}")
+    del model, step, bx, by
+    torch.cuda.empty_cache()
+
+
+class _ControllerLog:
+    """Records the controller's parameters at each suggestion round (each
+    time the suggester saves its state)."""
+
+    def __enter__(self):
+        from katib_tpu_torch.suggest.nas import enas
+
+        self.rounds, self.cls = [], enas.ENAS
+        self.save = self.cls._save
+        rounds, save = self.rounds, self.save
+
+        def recording(suggester):
+            rounds.append({k: v.detach().cpu().clone() for k, v in suggester._state["controller"].state_dict().items()})
+            save(suggester)
+
+        self.cls._save = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._save = self.save
+
+
+def run_enas_search(torch, card) -> None:
+    """examples/nas/enas.json through the CLI, cut to ENAS_MAX_TRIALS."""
+    from katib_tpu_torch.models import enas_child
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "nas", "enas.json")) as f:
+        doc = json.load(f)
+    log(f"enas [{card}]: examples/nas/enas.json, cut in a copy: maxTrialCount {doc['maxTrialCount']} -> "
+        f"{ENAS_MAX_TRIALS} (the script's time; everything else as the file has it)")
+    doc["maxTrialCount"] = ENAS_MAX_TRIALS
+    with _ControllerLog() as controller:
+        rc, wall, record, _ = _run_cli(torch, doc, "enas-search-", 900)
+    status, trials = record["experiment"]["status"], record["trials"]
+    log(f"enas [{card}]: examples/nas/enas.json through the port's CLI: rc {rc}, {status['condition']} "
+        f"({status['reason']}), {status['trialsSucceeded']}/{len(trials)} trials succeeded, experiment wall "
+        f"{wall:.1f}s, {len(controller.rounds)} suggestion rounds")
+    check(rc == 0 and status["condition"] == "Succeeded" and len(trials) == ENAS_MAX_TRIALS,
+          "examples/nas/enas.json did not succeed")
+    for t in trials:
+        a = {p["name"]: p["value"] for p in t["parameterAssignments"]}
+        arch, nn_config = enas_child.parse_assignments(a)
+        shapes = [layer.shape_out for layer in enas_child.EnasChildNet(arch, nn_config["embedding"]).plan]
+        empty_head = shapes[-1][1] * shapes[-1][2] == 0
+        rows = record["logs"][t["name"]]
+        values = {m: [float(v) for _, metric, v in rows if metric == m] for m in ("Validation-accuracy", "Train-loss")}
+        log(f"enas [{card}]:   {t['name']} {t['condition']} wall={t['completionTime'] - t['startTime']:.1f}s "
+            f"arc={arch} last map {shapes[-1]} {values}")
+        check(t["condition"] == "Succeeded", f"trial {t['name']} did not succeed:\n{t.get('message', '')}")
+        check(len(values["Validation-accuracy"]) == 3 and all(math.isfinite(v) for v in values["Validation-accuracy"]),
+              f"trial {t['name']}: Validation-accuracy is not one finite value per epoch")
+        check(len(values["Train-loss"]) == 3 and (empty_head or all(math.isfinite(v) for v in values["Train-loss"])),
+              f"trial {t['name']}: Train-loss is not one finite value per epoch")
+    moved = [max(float((a[k] - b[k]).abs().max()) for k in a) for a, b in zip(controller.rounds, controller.rounds[1:])]
+    log(f"enas [{card}]: the controller's largest parameter change from each round to the next: {moved}")
+    check(len(moved) >= 1 and all(m > 0 for m in moved), "the controller did not train between suggestion rounds")
+
+
+# ---------------------------------------------------------------------------
 
 def device_line() -> str:
     try:
@@ -1048,7 +1379,8 @@ def main(argv=None) -> int:
               for name, (src, rep) in REPLACES.items()}
     phases = {"build": lambda: phase_build(torch), "kernels": lambda: phase_kernels(torch, record),
               "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record),
-              "mnist": lambda: phase_mnist(torch), "darts": lambda: phase_darts(torch)}
+              "mnist": lambda: phase_mnist(torch), "darts": lambda: phase_darts(torch),
+              "enas": lambda: phase_enas(torch)}
     try:
         for phase, run in phases.items():
             t0 = time.perf_counter()

@@ -32,6 +32,8 @@ import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import torch
+
 from ..api.spec import (
     UNAVAILABLE_METRIC_VALUE,
     AlgorithmSetting,
@@ -68,6 +70,7 @@ PORTED_TRIALS = frozenset({
     "models.darts_trainer:run_darts_trial",
     "models.darts_trainer:run_darts_hpo_trial",
     "models.darts_derived:run_darts_retrain_trial",
+    "models.enas_child:run_enas_trial",
 })
 
 
@@ -283,7 +286,7 @@ class ExperimentController:
         seconds, after which running trials are killed and it fails)."""
         exp = self._experiments[name]
         spec = exp.spec
-        suggester = suggest_base.create(spec.algorithm.algorithm_name)
+        suggester = suggest_base.create(spec.algorithm.algorithm_name, **self._suggester_kwargs(spec))
         deadline = None if timeout is None else time.monotonic() + timeout
         suggestion_end = False
         settings: Dict[str, str] = {}  # handed back by the suggester's replies
@@ -330,6 +333,14 @@ class ExperimentController:
         update_experiment_status(exp, list(self._trials[name].values()), suggestion_end)
         self._save(exp)
         return exp
+
+    def _suggester_kwargs(self, spec: ExperimentSpec) -> Dict[str, Any]:
+        """ENAS keeps its controller's state in the experiment's directory
+        and runs the controller on the controller's first device."""
+        if spec.algorithm.algorithm_name != "enas":
+            return {}
+        device = self.devices[0] if isinstance(self.devices[0], torch.device) else None
+        return {"state_dir": os.path.join(self.root_dir, spec.name) if self.root_dir else None, "device": device}
 
     # -- trials ---------------------------------------------------------------
 

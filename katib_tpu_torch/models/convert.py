@@ -1,7 +1,9 @@
 """Carry the JAX package's parameters into the port's models: the LM's
 (``lm_state_dict_from_flax``), the MNIST network's
-(``mnist_params_from_flax``), and the DARTS supernet's and derived
-network's (``darts_params_from_flax``).
+(``mnist_params_from_flax``), the DARTS supernet's and derived
+network's (``darts_params_from_flax``), and ENAS's child network
+(``enas_child_params_from_flax``) and controller
+(``enas_controller_params_from_jax``).
 
 The input is a flax parameter tree (``katib_tpu/models/transformer.py``,
 ``katib_tpu/models/mnist_cnn.py``) with numpy arrays as leaves; the output
@@ -98,3 +100,26 @@ def darts_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]
 
     walk(params, ())
     return out
+
+
+def enas_child_params_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An ENAS child network's flax parameters (``layer1_conv``,
+    ``layer2_dw``, ``layer2_pw``, ``classifier``) as a ``state_dict`` of the
+    port's ``EnasChildNet``, whose modules carry the same names:
+    convolution kernels HWIO -> OIHW, the dense kernel [in, out] -> [out,
+    in], biases as they are."""
+    if "params" in params and "classifier" not in params:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for module, leaves in params.items():
+        kernel = np.asarray(leaves["kernel"])
+        out[f"{module}.weight"] = _t(kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.T)
+        out[f"{module}.bias"] = _t(leaves["bias"])
+    return out
+
+
+def enas_controller_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ENAS controller's parameter dict (``w_lstm``, ``g_emb``, ...)
+    as a ``state_dict`` of the port's ``EnasController``: the same names and
+    layouts."""
+    return {name: _t(value) for name, value in params.items()}

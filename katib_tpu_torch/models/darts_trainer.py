@@ -41,7 +41,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from ..utils.backend import trial_device
-from ..utils.datasets import batch_indices, load_cifar10, split_on_device
+from ..utils.datasets import batch_indices, cifar10_train_nchw
 from ..utils.precision import f32_convolutions
 from .darts_supernet import DartsSupernet, genotype
 
@@ -295,8 +295,7 @@ def _search_and_report(search: DartsSearch, train_data: Batch, valid_data: Batch
 def cifar_halves(n_train: Optional[int], device: torch.device) -> Tuple[Batch, Batch]:
     """CIFAR-10's training split as NCHW on ``device``, cut in halves: the
     search's (or retrain's) train and valid data."""
-    x, y = split_on_device(load_cifar10, "train", n_train, device)
-    x = x.permute(0, 3, 1, 2).contiguous()
+    x, y = cifar10_train_nchw(n_train, device)
     half = len(x) // 2
     return (x[:half], y[:half]), (x[half:], y[half:])
 

@@ -62,12 +62,12 @@ def _pads(x: torch.Tensor, window: int, stride: int):
 
 
 def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1, dilation: int = 1,
-                groups: int = 1) -> torch.Tensor:
+                groups: int = 1, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     window = (weight.shape[-1] - 1) * dilation + 1
     explicit, padding = _pads(x, window, stride)
     if explicit is not None:
         x = F.pad(x, explicit)
-    return F.conv2d(x, weight, None, stride, padding, dilation, groups)
+    return F.conv2d(x, weight, bias, stride, padding, dilation, groups)
 
 
 def lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:

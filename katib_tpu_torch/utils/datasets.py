@@ -126,6 +126,13 @@ def split_on_device(load: Callable, split: str, n: Optional[int],
     return torch.tensor(x, device=device), torch.tensor(y, dtype=torch.long, device=device)
 
 
+def cifar10_train_nchw(n: Optional[int], device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CIFAR-10's training split (``n`` images, all when None) as NCHW f32
+    images and int64 labels on ``device``."""
+    x, y = split_on_device(load_cifar10, "train", n, device)
+    return x.permute(0, 3, 1, 2).contiguous(), y
+
+
 def batch_indices(n: int, batch_size: int, rng: np.random.Generator) -> np.ndarray:
     """[n // batch_size, batch_size]: one shuffled epoch's sample indices,
     the ragged tail dropped. Draws one permutation of n from ``rng``, also

@@ -503,15 +503,17 @@ def test_examples_validate_or_are_refused_without_importing_jax(fresh_interprete
     validated = result["validated"]
     assert len(validated) == 17
     valid = sorted(Path(p).stem for p, outcome in validated.items() if outcome == "valid")
-    assert valid == ["darts", "darts-retrain", "early-stopping-medianstop", "grid", "hyperband", "multivariate-tpe",
-                     "random", "tpe"]
+    assert valid == ["darts", "darts-retrain", "early-stopping-medianstop", "enas", "grid", "hyperband",
+                     "multivariate-tpe", "random", "tpe"]
     refused = {Path(p).stem: outcome for p, outcome in validated.items() if outcome != "valid"}
     assert all(outcome.startswith("ValidationError: ") for outcome in refused.values())
-    assert "not yet ported" in refused["enas"] and "katib_tpu.models.enas_child:run_enas_trial" in refused["enas"]
+    assert "not yet ported" in refused["simple-pbt"] and \
+        "katib_tpu.models.simple_pbt:run_pbt_trial" in refused["simple-pbt"]
     assert "reuseDuplicateResults" in refused["reuse-duplicate-results"]
     assert "numDevices=4" in refused["distributed-lm"] and "one card" in refused["distributed-lm"]
     assert {"katib_tpu_torch.cli", "katib_tpu_torch.models.mnist_cnn", "katib_tpu_torch.models.darts_trainer",
-            "katib_tpu_torch.models.darts_derived", "katib_tpu_torch.suggest.nas.darts"} <= set(result["modules"])
+            "katib_tpu_torch.models.darts_derived", "katib_tpu_torch.suggest.nas.darts",
+            "katib_tpu_torch.models.enas_child", "katib_tpu_torch.suggest.nas.enas"} <= set(result["modules"])
     assert result["after_validation"] == [] and result["after_imports"] == []
     assert port_run["imported"] == []
 
