@@ -48,7 +48,16 @@ Phases, all of them on every run, each fatal on failure:
              images): every trial must succeed with finite loss and
              accuracy, and Hyperband must run its brackets to the trial
              budget;
-6. darts   — with torch's default TF32 flags too: three f32 search steps
+6. suggest — with torch's default TF32 flags too: examples/cma-es.json,
+             cma-es-ipop.json, multivariate-tpe.json and
+             reuse-duplicate-results.json, unchanged, through the port's CLI
+             on the card: every trial must succeed with finite metrics; the
+             CMA-ES trials must carry generation labels, each generation but
+             the last at least popsize trials, inside the feasible space; at
+             least one reuse trial must have taken a Succeeded twin's result
+             (reason DuplicateResultReused), with its source's metric log and
+             in under 0.1 s;
+7. darts   — with torch's default TF32 flags too: three f32 search steps
              (second order, hessian_mode jvp) and one fd step of a small
              supernet (2 layers, 2 nodes, 4 channels, batch 16, 32x32,
              darts.json's 8 operations) on the card against the same steps
@@ -64,7 +73,7 @@ Phases, all of them on every run, each fatal on failure:
              operations, two edges a node), and
              examples/nas/darts-retrain.json on that genotype, cut to 2
              trials of 2 epochs (both must succeed with finite metrics);
-7. enas    — with torch's default TF32 flags too: three Adam steps of a
+8. enas    — with torch's default TF32 flags too: three Adam steps of a
              small ENAS child (every op kind, skips to the image, a
              reduction whose map is padded beside larger ones, depth
              multiplier 2) on the card against the CPU, from the same
@@ -634,17 +643,23 @@ def train_step_times(torch, fixed) -> None:
 # phase 5: the MNIST trial and the repo's examples
 # ---------------------------------------------------------------------------
 
-def phase_mnist(torch) -> None:
-    """Runs with torch's default TF32 flags (cuDNN convolutions may use
-    TF32) and puts back the flags main() set."""
+@contextlib.contextmanager
+def torch_default_tf32(torch):
+    """torch's default TF32 flags (cuDNN convolutions may use TF32, the
+    trials hold theirs in f32) for the block; then the flags main() set."""
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
     try:
-        mnist_step_check(torch)
-        for name in ("random", "hyperband"):
-            run_example(torch, name)
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def phase_mnist(torch) -> None:
+    with torch_default_tf32(torch):
+        mnist_step_check(torch)
+        for name in ("random", "hyperband"):
+            run_example(torch, "mnist", name)
 
 
 def mnist_step_check(torch, steps=5, batch=64) -> None:
@@ -722,17 +737,19 @@ def mnist_step_check(torch, steps=5, batch=64) -> None:
         f"idle), {launches:.1f} device ops/step; top device time:\n{table}")
 
 
-def run_example(torch, name) -> None:
-    """examples/<name>.json, unchanged, through the port's CLI on the card."""
+def run_example(torch, phase, name) -> dict:
+    """examples/<name>.json, unchanged, through the port's CLI on the card;
+    every trial must succeed with one finite value of each MNIST metric per
+    epoch. Returns the experiment's record."""
+    import tempfile
+
     from katib_tpu_torch import cli
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", f"{name}.json")
     with open(path) as f:
         doc = json.load(f)
-    import tempfile
-
     os.makedirs(OUT_DIR, exist_ok=True)
-    root = tempfile.mkdtemp(prefix=f"mnist-{name}-", dir=OUT_DIR)
+    root = tempfile.mkdtemp(prefix=f"{phase}-{name}-", dir=OUT_DIR)
     t0 = time.perf_counter()
     rc = cli.main(["run", path, "--root", root, "--timeout", "900"])
     torch.cuda.synchronize()
@@ -741,26 +758,87 @@ def run_example(torch, name) -> None:
         record = json.load(f)
     status, trials = record["experiment"]["status"], record["trials"]
     walls = sorted(t["completionTime"] - t["startTime"] for t in trials)
-    log(f"mnist: examples/{name}.json through the port's CLI: rc {rc}, {status['condition']} "
+    log(f"{phase}: examples/{name}.json through the port's CLI: rc {rc}, {status['condition']} "
         f"({status['reason']}), {status['trialsSucceeded']}/{len(trials)} trials succeeded, "
         f"experiment wall {wall:.1f}s; trial wall min {walls[0]:.2f}s, median {walls[len(walls) // 2]:.2f}s, "
         f"max {walls[-1]:.2f}s")
     check(rc == 0 and status["condition"] == "Succeeded", f"examples/{name}.json did not succeed")
     check(len(trials) == doc["maxTrialCount"], f"examples/{name}.json ran {len(trials)} trials")
+    objective = doc["objective"]
+    metrics = list(dict.fromkeys([objective["objectiveMetricName"], *objective.get("additionalMetricNames", []),
+                                  "loss", "accuracy"]))  # the MNIST trial reports both each epoch
     for t in trials:
         a = {p["name"]: p["value"] for p in t["parameterAssignments"]}
         rows = record["logs"][t["name"]]
-        values = {m: [float(v) for _, metric, v in rows if metric == m] for m in ("loss", "accuracy")}
+        values = {m: [float(v) for _, metric, v in rows if metric == m] for m in metrics}
         epochs = int(a.get("num_epochs", "1"))
-        log(f"mnist:   {t['name']} {t['condition']} lr={float(a['lr']):.4f} momentum={float(a['momentum']):.3f} "
-            f"epochs={epochs} wall={t['completionTime'] - t['startTime']:.2f}s "
-            f"loss={[round(v, 4) for v in values['loss']]} accuracy={[round(v, 4) for v in values['accuracy']]}")
+        log(f"{phase}:   {t['name']} {t['condition']} ({t['conditions'][-1]['reason'] or 'ran'}) "
+            f"{' '.join(f'{k}={v}' for k, v in a.items())} wall={t['completionTime'] - t['startTime']:.4f}s "
+            + " ".join(f"{m}={[round(v, 4) for v in values[m]]}" for m in metrics))
         check(t["condition"] == "Succeeded", f"trial {t['name']} did not succeed:\n{t.get('message', '')}")
         for metric, vals in values.items():
             check(len(vals) == epochs and all(math.isfinite(v) for v in vals),
                   f"trial {t['name']}: {metric} {vals} is not one finite value per epoch")
+    log(f"{phase}: examples/{name}.json: objective {objective['type']} {objective['objectiveMetricName']}, "
+        f"best {status['currentOptimalTrial']['bestTrialName']} "
+        f"{[(p['name'], p['value']) for p in status['currentOptimalTrial']['parameterAssignments']]}")
     if name == "hyperband":
         check_hyperband_rungs(record)
+    return record
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the suggesters and duplicate-result reuse
+# ---------------------------------------------------------------------------
+
+def phase_suggest(torch) -> None:
+    with torch_default_tf32(torch):
+        for name in ("cma-es", "cma-es-ipop"):
+            check_cmaes(run_example(torch, "suggest", name))
+        run_example(torch, "suggest", "multivariate-tpe")
+        check_reuse(run_example(torch, "suggest", "reuse-duplicate-results"))
+
+
+def check_cmaes(record) -> None:
+    """Every trial carries a generation label; the generations come in
+    order, each but the last holding at least popsize trials (so each one
+    folded before the next was drawn); every assignment lies inside the
+    feasible space."""
+    doc = record["experiment"]["spec"]
+    settings = {s["name"]: s["value"] for s in doc["algorithm"]["algorithmSettings"]}
+    popsize = int(settings.get("popsize", 4 + int(3 * math.log(len(doc["parameters"])))))
+    trials = record["trials"]
+    labels = [t["labels"].get("cmaes-generation") for t in trials]
+    check(None not in labels, f"{doc['name']}: a trial has no cmaes-generation label: {labels}")
+    sizes = [labels.count(str(g)) for g in range(max(map(int, labels)) + 1)]
+    log(f"suggest: {doc['name']}: trials per generation {sizes} (popsize {popsize}, restart strategy "
+        f"{settings.get('restart_strategy', 'none')})")
+    check(labels == sorted(labels, key=int) and all(n >= popsize for n in sizes[:-1]) and sizes[-1] > 0,
+          f"{doc['name']}: generations out of order or short of popsize {popsize}: {labels}")
+    space = {p["name"]: p["feasibleSpace"] for p in doc["parameters"]}
+    for t in trials:
+        for p in t["parameterAssignments"]:
+            lo, hi = float(space[p["name"]]["min"]), float(space[p["name"]]["max"])
+            check(lo <= float(p["value"]) <= hi, f"{doc['name']}: {p} lies outside [{lo}, {hi}]")
+
+
+def check_reuse(record) -> None:
+    """At least one trial reused a result (12 draws over 6 points repeat;
+    twins in flight together both run); each reused trial's metric log is
+    its source's, and it took no time."""
+    trials = {t["name"]: t for t in record["trials"]}
+    reused = [t for t in trials.values() if t["conditions"][-1]["reason"] == "DuplicateResultReused"]
+    log(f"suggest: reuse-duplicate-results: {len(reused)} of {len(trials)} trials reused a result, "
+        f"{len({tuple(sorted((p['name'], p['value']) for p in t['parameterAssignments'])) for t in trials.values()})}"
+        f" distinct assignments")
+    check(reused, "no trial reused a result")
+    for t in reused:
+        source = trials[t["message"].split("reused result of trial ")[1].split(" ")[0]]
+        wall = t["completionTime"] - t["startTime"]
+        check(record["logs"][t["name"]] == record["logs"][source["name"]] and record["logs"][t["name"]],
+              f"{t['name']}'s log is not {source['name']}'s")
+        check(source["parameterAssignments"] == t["parameterAssignments"] and wall < 0.1,
+              f"{t['name']} reused {source['name']} with other assignments or took {wall:.4f}s")
 
 
 def check_hyperband_rungs(record) -> None:
@@ -794,23 +872,17 @@ def check_hyperband_rungs(record) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the DARTS search and its retraining
+# phase 7: the DARTS search and its retraining
 # ---------------------------------------------------------------------------
 
 def phase_darts(torch) -> None:
-    """Runs with torch's default TF32 flags (cuDNN convolutions may use
-    TF32; the trials hold them in f32) and puts back the flags main() set."""
     card = device_line()
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
-    try:
+    with torch_default_tf32(torch):
         for mode, steps in (("jvp", 3), ("fd", 1)):
             darts_step_check(torch, card, mode, steps)
         darts_full_width(torch, card)
         genotype = run_darts_search(torch, card)
         run_darts_retrain(torch, card, genotype)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _darts_search(torch, device, settings, num_layers):
@@ -1053,24 +1125,18 @@ def run_darts_retrain(torch, card, genotype: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the ENAS search
+# phase 8: the ENAS search
 # ---------------------------------------------------------------------------
 
 def phase_enas(torch) -> None:
-    """Runs with torch's default TF32 flags (the trial holds its
-    convolutions in f32) and puts back the flags main() set."""
     card = device_line()
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True  # torch's defaults
-    try:
+    with torch_default_tf32(torch):
         enas_child_check(torch, card)
         enas_empty_map_check(torch, card)
         enas_controller_check(torch, card)
         for label, arc in (("widest", enas_widest_arc()), ("sampled", enas_sampled_arc(torch))):
             enas_full_width(torch, card, label, arc)
         run_enas_search(torch, card)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 ENAS_SMALL_OPS = {  # every op kind of the child, depth multiplier 2
@@ -1379,7 +1445,8 @@ def main(argv=None) -> int:
               for name, (src, rep) in REPLACES.items()}
     phases = {"build": lambda: phase_build(torch), "kernels": lambda: phase_kernels(torch, record),
               "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record),
-              "mnist": lambda: phase_mnist(torch), "darts": lambda: phase_darts(torch),
+              "mnist": lambda: phase_mnist(torch), "suggest": lambda: phase_suggest(torch),
+              "darts": lambda: phase_darts(torch),
               "enas": lambda: phase_enas(torch)}
     try:
         for phase, run in phases.items():

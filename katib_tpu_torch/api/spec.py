@@ -7,9 +7,9 @@ port's counterpart of that trial where the port has one
 (``controller/experiment.py:PORTED_TRIALS``). A section the port does not
 carry yet raises ``ValidationError`` naming it, as does any other key it
 does not know (keys that start with ``_``, such as ``_comment``, are
-ignored): ``reuseDuplicateResults: true``, a metrics collector
-other than the default push collector, a resume policy other than
-``Never``, fair-share fields, and command templates.
+ignored): a metrics collector other than the default push collector, a
+resume policy other than ``Never``, fair-share fields, and command
+templates.
 """
 
 from __future__ import annotations
@@ -23,7 +23,12 @@ UNAVAILABLE_METRIC_VALUE = "unavailable"
 
 
 class ValidationError(ValueError):
-    """A spec the port cannot run as written."""
+    """A spec the port cannot run as written: one message, or every error
+    admission found (``errors``), joined as the JAX package joins them."""
+
+    def __init__(self, errors):
+        self.errors = [errors] if isinstance(errors, str) else list(errors)
+        super().__init__("; ".join(self.errors))
 
 
 class ObjectiveType(str, enum.Enum):
@@ -373,6 +378,9 @@ class ExperimentSpec:
     max_failed_trial_count: Optional[int] = None
     early_stopping: Optional[EarlyStoppingSpec] = None
     nas_config: Optional[NasConfig] = None
+    # a trial whose assignments equal a Succeeded trial's takes its result
+    # instead of running (controller/experiment.py)
+    reuse_duplicate_results: bool = False
 
     def to_dict(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
@@ -391,6 +399,8 @@ class ExperimentSpec:
         ):
             if value is not None:
                 d[key] = value
+        if self.reuse_duplicate_results:
+            d["reuseDuplicateResults"] = True
         if self.nas_config:
             d["nasConfig"] = self.nas_config.to_dict()
         return d
@@ -409,6 +419,7 @@ class ExperimentSpec:
             max_failed_trial_count=d.get("maxFailedTrialCount"),
             early_stopping=EarlyStoppingSpec.from_dict(d["earlyStopping"]) if d.get("earlyStopping") else None,
             nas_config=NasConfig.from_dict(d["nasConfig"]) if d.get("nasConfig") else None,
+            reuse_duplicate_results=bool(d.get("reuseDuplicateResults", False)),
         )
 
     @classmethod
@@ -418,7 +429,7 @@ class ExperimentSpec:
 
 _CARRIED_KEYS = frozenset({
     "name", "parameters", "objective", "algorithm", "trialTemplate", "parallelTrialCount",
-    "maxTrialCount", "maxFailedTrialCount", "earlyStopping", "nasConfig",
+    "maxTrialCount", "maxFailedTrialCount", "earlyStopping", "nasConfig", "reuseDuplicateResults",
 })
 
 
@@ -436,10 +447,8 @@ def refuse_sections_not_carried(d: Dict[str, Any]) -> None:
     """Raise ValidationError naming the first top-level section of a spec
     document that the port would otherwise drop. The values that the JAX
     package writes by default (push collector, ``resumePolicy: Never``,
-    ``reuseDuplicateResults: false``, ``fairShareWeight: 1``, no priority
-    class) are accepted."""
+    ``fairShareWeight: 1``, no priority class) are accepted."""
     refused = {
-        "reuseDuplicateResults": bool,
         "metricsCollectorSpec": lambda v: not _default_collector(v),
         "resumePolicy": lambda v: v not in (None, "Never"),
         "priorityClass": bool,

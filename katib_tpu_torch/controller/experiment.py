@@ -17,8 +17,12 @@ laid over the spec's algorithm settings for the next request. With an
 ``earlyStopping`` section, one stopper per experiment computes the rules
 at each trial's start, and the trial's reporter enforces them: a stopped
 trial ends as EarlyStopped, which counts as completed, not failed.
-Replicas, tenancy, recovery, the compile service, packing and fused
-populations are later slices of the port.
+How many trials to ask for is Katib's ReconcileTrials
+(``controller/suggestion.py``). With ``reuseDuplicateResults``, a new trial
+whose assignments equal those of a Succeeded trial takes that trial's
+metric log and succeeds at once, without a device. Replicas, tenancy,
+recovery, the compile service, packing and fused populations are later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -52,13 +56,16 @@ from ..api.status import (
     Trial,
     TrialCondition,
 )
+from ..api.validation import validate_experiment
 from ..db.store import InMemoryObservationStore
 from ..earlystop.medianstop import create_early_stopper
 from ..runtime.context import TrialContext
 from ..runtime.metrics import EarlyStopped, EarlyStoppingMonitor, MetricsReporter, TrialKilled
 from ..suggest import base as suggest_base
+from .suggestion import suggestion_request_plan
 
 DEFAULT_PARALLEL_TRIAL_COUNT = 3  # Katib's default
+LINEAGE_LABEL = "checkpoint-lineage"  # a trial trained from a parent's checkpoint (PBT)
 JAX_PACKAGE = "katib_tpu"
 PORT_PACKAGE = "katib_tpu_torch"
 # Trials of the JAX package that the port has, as "module:function" below
@@ -101,16 +108,10 @@ def resolve_entry_point(template: TrialTemplate) -> Callable[..., Any]:
 
 
 def validate_spec(spec: ExperimentSpec, n_devices: int) -> None:
-    if not spec.name:
-        raise ValidationError("experiment name is empty")
-    names = [p.name for p in spec.parameters]
-    if spec.nas_config is not None and names:
-        raise ValidationError("only one of parameters and nasConfig can be specified")
-    if (spec.nas_config is None and not names) or len(set(names)) != len(names):
-        raise ValidationError(f"parameters (or nasConfig) must be non-empty with unique names, got {names}")
-    obj = spec.objective
-    if obj.type not in (ObjectiveType.MINIMIZE, ObjectiveType.MAXIMIZE) or not obj.objective_metric_name:
-        raise ValidationError("objective needs type minimize|maximize and objectiveMetricName")
+    """The JAX package's admission rules (``api/validation.py``), then the
+    port's own: the entry point, the algorithm and its settings, hosts and
+    devices."""
+    validate_experiment(spec)
     try:
         resolve_entry_point(spec.trial_template)
     except (ImportError, AttributeError) as e:
@@ -125,10 +126,6 @@ def validate_spec(spec: ExperimentSpec, n_devices: int) -> None:
         raise ValidationError("multi-host trials are a later slice of the port")
     if not 1 <= res.num_devices <= n_devices:
         raise ValidationError(f"numDevices={res.num_devices} but the controller holds {n_devices} device(s)")
-    for key in ("parallel_trial_count", "max_trial_count", "max_failed_trial_count"):
-        value = getattr(spec, key)
-        if value is not None and value < (0 if key == "max_failed_trial_count" else 1):
-            raise ValidationError(f"{key} must be positive, got {value}")
     if spec.trial_template.function is None and res.num_devices > 1:
         trial = port_entry_point(spec.trial_template.entry_point)
         if trial.startswith(PORT_PACKAGE + ".") and trial[len(PORT_PACKAGE) + 1:] in PORTED_TRIALS:
@@ -263,9 +260,9 @@ class ExperimentController:
     def create_experiment(self, spec: ExperimentSpec) -> Experiment:
         if spec.name in self._experiments:
             raise ValidationError(f"experiment {spec.name!r} already exists")
-        validate_spec(spec, len(self.devices))
-        if spec.parallel_trial_count is None:
+        if spec.parallel_trial_count is None:  # defaulted before admission, as Katib does
             spec.parallel_trial_count = DEFAULT_PARALLEL_TRIAL_COUNT
+        validate_spec(spec, len(self.devices))
         exp = Experiment(spec=spec)
         exp.status.set_condition(ExperimentCondition.CREATED, message="Experiment is created")
         self._experiments[spec.name] = exp
@@ -303,9 +300,7 @@ class ExperimentController:
                                              f"Experiment timed out after {timeout}s")
                     break
                 active = [t for t in trials if not t.is_terminal]
-                want = spec.parallel_trial_count - len(active)
-                if spec.max_trial_count is not None:
-                    want = min(want, spec.max_trial_count - len(trials))
+                want = suggestion_request_plan(exp, trials)
                 seen = (want, tuple((t.name, t.condition) for t in trials))
                 if want > 0 and not suggestion_end and seen != waiting_on:
                     request = suggest_base.SuggestionRequest(
@@ -324,6 +319,8 @@ class ExperimentController:
                     for assignment in reply.assignments:
                         trial = Trial.from_assignment(assignment, name)
                         trial.set_condition(TrialCondition.PENDING, message="waiting for devices")
+                        if spec.reuse_duplicate_results:
+                            self._reuse_duplicate(exp, trial)
                         self._trials[name][trial.name] = trial
                     if reply.assignments or suggestion_end:
                         continue
@@ -343,6 +340,30 @@ class ExperimentController:
         return {"state_dir": os.path.join(self.root_dir, spec.name) if self.root_dir else None, "device": device}
 
     # -- trials ---------------------------------------------------------------
+
+    def _reuse_duplicate(self, exp: Experiment, trial: Trial) -> bool:
+        """Finish ``trial`` with the result of a Succeeded trial of the
+        experiment with the same assignments, if there is one: its metric
+        log is copied and folded, and the trial passes through Running to
+        Succeeded without taking a device. Only trials that have already
+        succeeded are sources, not twins still in flight; a trial trained
+        from a parent's checkpoint is never a source or a target."""
+        key = sorted((a.name, a.value) for a in trial.parameter_assignments)
+        if not key or trial.labels.get(LINEAGE_LABEL):
+            return False
+        source = next((t for t in self._trials[exp.name].values()
+                       if t.condition == TrialCondition.SUCCEEDED and t.labels.get(LINEAGE_LABEL) != "1"
+                       and sorted((a.name, a.value) for a in t.parameter_assignments) == key), None)
+        if source is None:
+            return False
+        logs = self.obs_store.get_observation_log(source.name)
+        if logs:
+            self.obs_store.report_observation_log(trial.name, logs)
+        trial.observation = self.obs_store.folded(trial.name, exp.spec.objective.all_metric_names())
+        trial.set_condition(TrialCondition.RUNNING, "TrialRunning", f"reusing result of trial {source.name}")
+        trial.set_condition(TrialCondition.SUCCEEDED, "DuplicateResultReused",
+                            f"reused result of trial {source.name} (identical assignments)")
+        return True
 
     def _dispatch(self, exp: Experiment) -> None:
         """Start pending trials, in order, while device slots are free."""

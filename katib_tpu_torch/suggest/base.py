@@ -108,5 +108,5 @@ def create(name: str, **kwargs) -> Suggester:
 
 
 def _ensure_builtins() -> None:
-    from . import grid, hyperband, random_search, tpe  # noqa: F401  (registration side effects)
+    from . import cmaes, grid, hyperband, random_search, tpe  # noqa: F401  (registration side effects)
     from .nas import darts, enas  # noqa: F401

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from katib_tpu.api import spec as jax_spec
+from katib_tpu.api import validation as jax_validation
 from katib_tpu.api.status import Trial as JaxTrial
 from katib_tpu.api.status import TrialCondition as JaxTrialCondition
 from katib_tpu.db import store as jax_store
@@ -154,8 +155,18 @@ def test_command_templates_are_refused():
     ("tenant", "a"),  # a key the port does not know at all
 ])
 def test_sections_the_port_does_not_carry_are_refused(section, value):
+    doc = dict(_small_doc(), **{section: value})
+    if section == "reuseDuplicateResults":
+        # carried: refused at admission only without a trial budget, with the JAX package's message
+        del doc["maxTrialCount"]
+        message = "reuseDuplicateResults requires maxTrialCount to bound the experiment"
+        with pytest.raises(jax_validation.ValidationError, match=message):
+            jax_validation.validate_experiment(jax_spec.ExperimentSpec.from_dict(doc))
+        with pytest.raises(spec.ValidationError, match=message):
+            ExperimentController(devices=CPU).create_experiment(spec.ExperimentSpec.from_dict(doc))
+        return
     with pytest.raises(spec.ValidationError, match=repr(section)):
-        spec.ExperimentSpec.from_dict(dict(_small_doc(), **{section: value}))
+        spec.ExperimentSpec.from_dict(doc)
 
 
 def test_default_sections_and_comments_are_accepted():
@@ -302,7 +313,7 @@ def test_unreported_objective_is_metrics_unavailable():
 
 
 def test_returned_numbers_are_reported():
-    exp, trials = _run(_fn_spec(lambda a, ctx: {"loss": 2.0}, trials=1))
+    exp, trials = _run(_fn_spec(lambda a, ctx: {"loss": 2.0}, trials=1, maxFailedTrialCount=1))
     assert trials[0].observation.metric("loss").latest == "2.0"
     assert exp.status.current_optimal_trial.best_trial_name == trials[0].name
 
@@ -378,7 +389,9 @@ def test_a_rung_that_cannot_complete_fails_the_experiment():
     (lambda d: d["trialTemplate"].update(entryPoint="katib_tpu_torch.parallel.train"), "module:function"),
     (lambda d: d["trialTemplate"].update(entryPoint="katib_tpu_torch.parallel.train:nope"), "does not resolve"),
     (lambda d: d.update(parameters=[]), "parameters"),
-    (lambda d: d.update(nasConfig={"graphConfig": {"numLayers": 2}}), "only one of parameters and nasConfig"),
+    pytest.param(lambda d: d.update(nasConfig={"graphConfig": {"numLayers": 2}}),
+                 "only one of spec.parameters and spec.nasConfig",  # the JAX package's message
+                 id="<lambda>-only one of parameters and nasConfig"),
     (lambda d: d["objective"].update(type="sideways"), "sideways"),
 ])
 def test_invalid_specs_are_refused(edit, match):

@@ -81,7 +81,7 @@ def cli_run(tmp_path_factory):
     for p in doc["parameters"]:
         if p["name"] in TINY:
             p["feasibleSpace"]["list"] = [TINY[p["name"]]]
-    doc.update(name="lm-tiny", maxTrialCount=1)
+    doc.update(name="lm-tiny", maxTrialCount=1, maxFailedTrialCount=1)
     (root / "lm-tiny.json").write_text(json.dumps(doc))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     proc = subprocess.Popen([sys.executable, "-c", _CPU_RUN, str(root / "lm-tiny.json"), str(root)],

@@ -381,9 +381,9 @@ def _medianstop_doc():
 
 
 SHRUNK_EXAMPLES = {
-    "random": lambda: _shrunk("random", maxTrialCount=2),
-    "tpe": lambda: _shrunk("tpe", maxTrialCount=2),
-    "grid": lambda: _shrunk("grid", maxTrialCount=2),
+    "random": lambda: _shrunk("random", maxTrialCount=2, parallelTrialCount=2, maxFailedTrialCount=2),
+    "tpe": lambda: _shrunk("tpe", maxTrialCount=2, parallelTrialCount=2, maxFailedTrialCount=2),
+    "grid": lambda: _shrunk("grid", maxTrialCount=2, parallelTrialCount=2, maxFailedTrialCount=2),
     "hyperband": _hyperband_doc,
     "early-stopping-medianstop": _medianstop_doc,
 }
@@ -503,17 +503,21 @@ def test_examples_validate_or_are_refused_without_importing_jax(fresh_interprete
     validated = result["validated"]
     assert len(validated) == 17
     valid = sorted(Path(p).stem for p, outcome in validated.items() if outcome == "valid")
-    assert valid == ["darts", "darts-retrain", "early-stopping-medianstop", "enas", "grid", "hyperband",
-                     "multivariate-tpe", "random", "tpe"]
+    assert valid == ["cma-es", "cma-es-ipop", "darts", "darts-retrain", "early-stopping-medianstop", "enas",
+                     "grid", "hyperband", "multivariate-tpe", "random", "reuse-duplicate-results", "tpe"]
     refused = {Path(p).stem: outcome for p, outcome in validated.items() if outcome != "valid"}
+    assert sorted(refused) == ["bayesian-optimization", "distributed-lm", "multihost-lm", "simple-pbt", "sobol"]
     assert all(outcome.startswith("ValidationError: ") for outcome in refused.values())
+    assert "unknown algorithm 'bayesianoptimization'" in refused["bayesian-optimization"]
+    assert "unknown algorithm 'sobol'" in refused["sobol"]
     assert "not yet ported" in refused["simple-pbt"] and \
         "katib_tpu.models.simple_pbt:run_pbt_trial" in refused["simple-pbt"]
-    assert "reuseDuplicateResults" in refused["reuse-duplicate-results"]
     assert "numDevices=4" in refused["distributed-lm"] and "one card" in refused["distributed-lm"]
+    assert "multi-host trials" in refused["multihost-lm"]
     assert {"katib_tpu_torch.cli", "katib_tpu_torch.models.mnist_cnn", "katib_tpu_torch.models.darts_trainer",
             "katib_tpu_torch.models.darts_derived", "katib_tpu_torch.suggest.nas.darts",
-            "katib_tpu_torch.models.enas_child", "katib_tpu_torch.suggest.nas.enas"} <= set(result["modules"])
+            "katib_tpu_torch.models.enas_child", "katib_tpu_torch.suggest.nas.enas", "katib_tpu_torch.suggest.cmaes",
+            "katib_tpu_torch.api.validation", "katib_tpu_torch.controller.suggestion"} <= set(result["modules"])
     assert result["after_validation"] == [] and result["after_imports"] == []
     assert port_run["imported"] == []
 
