@@ -43,21 +43,40 @@ Phases, all of them on every run, each fatal on failure:
              and batches (MNIST_TOL; the step holds its convolutions in
              f32 itself), and a control with that hold undone, which must
              miss MNIST_TOL; the step's ms at batch 64; then
-             examples/random.json and examples/hyperband.json, unchanged,
-             through the port's CLI on the card (full width, 60 000
-             images): every trial must succeed with finite loss and
+             examples/random.json, cut in a copy to RANDOM_MAX_TRIALS
+             trials (the cut is printed), and examples/hyperband.json,
+             unchanged, through the port's CLI on the card (full width,
+             60 000 images): every trial must succeed with finite loss and
              accuracy, and Hyperband must run its brackets to the trial
-             budget;
-6. suggest — with torch's default TF32 flags too: examples/cma-es.json,
-             cma-es-ipop.json, multivariate-tpe.json and
-             reuse-duplicate-results.json, unchanged, through the port's CLI
-             on the card: every trial must succeed with finite metrics; the
+             budget. The CLI runs of phases 5-7 hold cuDNN to its
+             deterministic algorithms (deterministic_cudnn), so a trial's
+             metrics are a function of its assignments: the MNIST step run
+             twice on the card under that hold must agree bit for bit;
+6. suggest — with torch's default TF32 flags too: examples/cma-es.json
+             and reuse-duplicate-results.json, unchanged, and
+             cma-es-ipop.json and multivariate-tpe.json, cut in copies to
+             CMAES_IPOP_MAX_TRIALS and MULTIVARIATE_TPE_MAX_TRIALS trials
+             (the cuts are printed), through the port's CLI on the card: every trial must succeed with finite metrics; the
              CMA-ES trials must carry generation labels, each generation but
              the last at least popsize trials, inside the feasible space; at
              least one reuse trial must have taken a Succeeded twin's result
              (reason DuplicateResultReused), with its source's metric log and
              in under 0.1 s;
-7. darts   — with torch's default TF32 flags too: three f32 search steps
+7. search  — with torch's default TF32 flags too: examples/sobol.json,
+             bayesian-optimization.json and simple-pbt.json, unchanged,
+             through the port's CLI on the card: every trial must succeed
+             with finite metrics inside the feasible space; the Sobol
+             trials must carry, in order and as strings, the decode of
+             scipy's qmc.Sobol(2, scramble=True, seed=0) stream; a BO trial
+             asked for once n_initial_points trials had ended must carry a
+             bo-acq label of the portfolio (ei, pi, lcb), and one asked for
+             before none; PBT must reach generation 2, every parent label
+             must name a trial of the experiment, every trial must carry
+             checkpoint-lineage and none may be reused, and every
+             checkpoint must hold step 20 x (generation + 1); then the host
+             ms of one BO call of 3 at histories of 12 and 200 trials
+             (median of 5);
+8. darts   — with torch's default TF32 flags too: three f32 search steps
              (second order, hessian_mode jvp) and one fd step of a small
              supernet (2 layers, 2 nodes, 4 channels, batch 16, 32x32,
              darts.json's 8 operations) on the card against the same steps
@@ -73,7 +92,7 @@ Phases, all of them on every run, each fatal on failure:
              operations, two edges a node), and
              examples/nas/darts-retrain.json on that genotype, cut to 2
              trials of 2 epochs (both must succeed with finite metrics);
-8. enas    — with torch's default TF32 flags too: three Adam steps of a
+9. enas    — with torch's default TF32 flags too: three Adam steps of a
              small ENAS child (every op kind, skips to the image, a
              reduction whose map is padded beside larger ones, depth
              multiplier 2) on the card against the CPU, from the same
@@ -162,10 +181,12 @@ DARTS_FULL = {"init_channels": "16", "num_nodes": "4", "stem_multiplier": "3", "
 # 700.00 W (PERF.md §5), so 585 steps (~800 s) would not fit the phase's
 # 600 s: the phase runs a copy cut to this many epochs, and prints the cut.
 DARTS_SEARCH_EPOCHS = "1"
-# ...and to this many of CIFAR-10's 50 000 training images (6 400 to search
-# on, 6 400 to validate: 50 search steps of 128, ~70 s instead of ~270 s),
-# to leave the script room for phase enas; printed with the epochs' cut.
-DARTS_SEARCH_EXAMPLES = "12800"
+# ...and to this many of CIFAR-10's 50 000 training images (1 280 to search
+# on, 1 280 to validate: 10 search steps of 128, ~17 s instead of ~270 s),
+# to leave the script room for phases enas and search on a slow host
+# (1169.5 s of phases with 12 800 images, PERF.md §6); printed with the
+# epochs' cut.
+DARTS_SEARCH_EXAMPLES = "2560"
 # ENAS child steps, f32, card against CPU: losses and parameters after three
 # Adam steps, absolute; the CPU tests' tolerance against the JAX package's
 # step (tests/test_torch_enas.py) and MNIST_TOL.
@@ -181,7 +202,20 @@ CONTROLLER_TOL = 1e-4
 # 128); the phase runs a copy cut to this many trials (the time of the
 # script, see PERF.md), so the controller is asked at least twice and
 # trains between rounds; the cut is printed.
-ENAS_MAX_TRIALS = 6
+ENAS_MAX_TRIALS = 4
+# examples/cma-es-ipop.json runs 40 trials (7 generations of 6, the last
+# short: [6, 6, 6, 6, 6, 6, 4]; IPOP's stall window is 20 generations, so
+# it restarts only on the CPU, in tests/test_torch_cmaes.py); the phase runs
+# a copy cut to this many, for the script's time, which still ends on a
+# short generation ([6, 6, 4]); the cut is printed.
+CMAES_IPOP_MAX_TRIALS = 16
+# examples/random.json and multivariate-tpe.json run 12 trials each; the
+# phases run copies cut to these, for the script's time on a slow host
+# (PERF.md §6); the cuts are printed. hyperband.json stays whole:
+# with fewer than its 18 trials the trial budget narrows its first
+# bracket's rungs.
+RANDOM_MAX_TRIALS = 8
+MULTIVARIATE_TPE_MAX_TRIALS = 8
 JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "katib_tpu")  # never imported by the port
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out")  # git-ignored
 
@@ -655,11 +689,35 @@ def torch_default_tf32(torch):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN held to deterministic algorithms for the block (its default
+    convolution backward is not: two runs of one seeded trial then differ,
+    and SGD near the edge of stability can amplify that into a NaN in one
+    run and not the next); then the flags as they were."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+@contextlib.contextmanager
+def timed(torch, label):
+    """Logs the seconds the block took, its device work included."""
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    log(f"{label}: {time.perf_counter() - t0:.1f}s")
+
+
 def phase_mnist(torch) -> None:
     with torch_default_tf32(torch):
-        mnist_step_check(torch)
-        for name in ("random", "hyperband"):
-            run_example(torch, "mnist", name)
+        with timed(torch, "mnist: step check and times"):
+            mnist_step_check(torch)
+        run_example(torch, "mnist", "random", max_trials=RANDOM_MAX_TRIALS)
+        run_example(torch, "mnist", "hyperband")
 
 
 def mnist_step_check(torch, steps=5, batch=64) -> None:
@@ -706,6 +764,11 @@ def mnist_step_check(torch, steps=5, batch=64) -> None:
     log(f"mnist: control, the same steps with the hold undone (cuDNN in TF32): losses max_abs_err="
         f"{control[0]:.3e}, params max_abs_err={control[1]:.3e} (must exceed tol {MNIST_TOL})")
     check(max(control) > MNIST_TOL, "MNIST_TOL does not catch TF32 convolutions: the check is too loose")
+    with deterministic_cudnn(torch):
+        first, again = run("cuda"), run("cuda")
+    same = first[0] == again[0] and all(torch.equal(first[1][n], again[1][n]) for n in first[1])
+    log(f"mnist: the same steps twice on the card under deterministic_cudnn: bit for bit equal: {same}")
+    check(same, "the MNIST step is not repeatable on the card under deterministic_cudnn")
 
     model = mnist_cnn.MnistCNN().to("cuda")
     step = mnist_cnn.make_mnist_train_step(model, 0.01, 0.5)
@@ -737,10 +800,12 @@ def mnist_step_check(torch, steps=5, batch=64) -> None:
         f"idle), {launches:.1f} device ops/step; top device time:\n{table}")
 
 
-def run_example(torch, phase, name) -> dict:
-    """examples/<name>.json, unchanged, through the port's CLI on the card;
-    every trial must succeed with one finite value of each MNIST metric per
-    epoch. Returns the experiment's record."""
+def run_example(torch, phase, name, trial_metrics=("loss", "accuracy"), max_trials=None) -> dict:
+    """examples/<name>.json, unchanged (or a copy cut to ``max_trials``),
+    through the port's CLI on the card; every trial must succeed with one
+    finite value of the objective and of each of ``trial_metrics`` (the
+    MNIST trial reports loss and accuracy) per epoch. Returns the
+    experiment's record, its root under "root"."""
     import tempfile
 
     from katib_tpu_torch import cli
@@ -750,8 +815,16 @@ def run_example(torch, phase, name) -> dict:
         doc = json.load(f)
     os.makedirs(OUT_DIR, exist_ok=True)
     root = tempfile.mkdtemp(prefix=f"{phase}-{name}-", dir=OUT_DIR)
+    if max_trials is not None:
+        log(f"{phase}: examples/{name}.json, cut in a copy: maxTrialCount {doc['maxTrialCount']} -> {max_trials} "
+            "(the script's time; everything else as the file has it)")
+        doc["maxTrialCount"] = max_trials
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
     t0 = time.perf_counter()
-    rc = cli.main(["run", path, "--root", root, "--timeout", "900"])
+    with deterministic_cudnn(torch):
+        rc = cli.main(["run", path, "--root", root, "--timeout", "900"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with open(os.path.join(root, doc["name"], "experiment.json")) as f:
@@ -766,24 +839,25 @@ def run_example(torch, phase, name) -> dict:
     check(len(trials) == doc["maxTrialCount"], f"examples/{name}.json ran {len(trials)} trials")
     objective = doc["objective"]
     metrics = list(dict.fromkeys([objective["objectiveMetricName"], *objective.get("additionalMetricNames", []),
-                                  "loss", "accuracy"]))  # the MNIST trial reports both each epoch
+                                  *trial_metrics]))
     for t in trials:
         a = {p["name"]: p["value"] for p in t["parameterAssignments"]}
         rows = record["logs"][t["name"]]
         values = {m: [float(v) for _, metric, v in rows if metric == m] for m in metrics}
         epochs = int(a.get("num_epochs", "1"))
         log(f"{phase}:   {t['name']} {t['condition']} ({t['conditions'][-1]['reason'] or 'ran'}) "
-            f"{' '.join(f'{k}={v}' for k, v in a.items())} wall={t['completionTime'] - t['startTime']:.4f}s "
+            f"{' '.join(f'{k}={v}' for k, v in a.items())} labels={t['labels']} "
+            f"wall={t['completionTime'] - t['startTime']:.4f}s "
             + " ".join(f"{m}={[round(v, 4) for v in values[m]]}" for m in metrics))
         check(t["condition"] == "Succeeded", f"trial {t['name']} did not succeed:\n{t.get('message', '')}")
-        for metric, vals in values.items():
-            check(len(vals) == epochs and all(math.isfinite(v) for v in vals),
-                  f"trial {t['name']}: {metric} {vals} is not one finite value per epoch")
+        check(all(len(vals) == epochs and all(math.isfinite(v) for v in vals) for vals in values.values()),
+              f"trial {t['name']}: {values} is not one finite value of each metric per epoch")
     log(f"{phase}: examples/{name}.json: objective {objective['type']} {objective['objectiveMetricName']}, "
         f"best {status['currentOptimalTrial']['bestTrialName']} "
         f"{[(p['name'], p['value']) for p in status['currentOptimalTrial']['parameterAssignments']]}")
     if name == "hyperband":
         check_hyperband_rungs(record)
+    record["root"] = root
     return record
 
 
@@ -793,10 +867,25 @@ def run_example(torch, phase, name) -> dict:
 
 def phase_suggest(torch) -> None:
     with torch_default_tf32(torch):
-        for name in ("cma-es", "cma-es-ipop"):
-            check_cmaes(run_example(torch, "suggest", name))
-        run_example(torch, "suggest", "multivariate-tpe")
+        check_cmaes(run_example(torch, "suggest", "cma-es"))
+        check_cmaes(run_example(torch, "suggest", "cma-es-ipop", max_trials=CMAES_IPOP_MAX_TRIALS))
+        run_example(torch, "suggest", "multivariate-tpe", max_trials=MULTIVARIATE_TPE_MAX_TRIALS)
         check_reuse(run_example(torch, "suggest", "reuse-duplicate-results"))
+
+
+def check_feasible(record) -> None:
+    """Every assignment lies inside its parameter's [min, max], or is one
+    of its list."""
+    doc = record["experiment"]["spec"]
+    space = {p["name"]: p["feasibleSpace"] for p in doc["parameters"]}
+    for t in record["trials"]:
+        for p in t["parameterAssignments"]:
+            fs = space[p["name"]]
+            if fs.get("list"):
+                check(p["value"] in fs["list"], f"{doc['name']}: {p} is not one of {fs['list']}")
+                continue
+            lo, hi = float(fs["min"]), float(fs["max"])
+            check(lo <= float(p["value"]) <= hi, f"{doc['name']}: {p} lies outside [{lo}, {hi}]")
 
 
 def check_cmaes(record) -> None:
@@ -815,11 +904,7 @@ def check_cmaes(record) -> None:
         f"{settings.get('restart_strategy', 'none')})")
     check(labels == sorted(labels, key=int) and all(n >= popsize for n in sizes[:-1]) and sizes[-1] > 0,
           f"{doc['name']}: generations out of order or short of popsize {popsize}: {labels}")
-    space = {p["name"]: p["feasibleSpace"] for p in doc["parameters"]}
-    for t in trials:
-        for p in t["parameterAssignments"]:
-            lo, hi = float(space[p["name"]]["min"]), float(space[p["name"]]["max"])
-            check(lo <= float(p["value"]) <= hi, f"{doc['name']}: {p} lies outside [{lo}, {hi}]")
+    check_feasible(record)
 
 
 def check_reuse(record) -> None:
@@ -872,17 +957,147 @@ def check_hyperband_rungs(record) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the DARTS search and its retraining
+# phase 7: Sobol, Bayesian optimisation and PBT
+# ---------------------------------------------------------------------------
+
+BO_HOST_HISTORIES = (12, 200)  # trials in the history of a timed BO call
+
+
+def phase_search(torch) -> None:
+    with torch_default_tf32(torch):
+        check_sobol(run_example(torch, "search", "sobol"))
+        check_bayesopt(run_example(torch, "search", "bayesian-optimization"))
+        check_pbt(run_example(torch, "search", "simple-pbt", trial_metrics=()))
+    bayesopt_host_times()
+
+
+def check_sobol(record) -> None:
+    """The trials, in the order they were made, carry the decode of scipy's
+    scrambled Sobol stream (2 dimensions, seed 0), as strings."""
+    from scipy.stats import qmc
+
+    from katib_tpu_torch.api.spec import ExperimentSpec
+    from katib_tpu_torch.suggest.internal.search_space import SearchSpace
+
+    doc, trials = record["experiment"]["spec"], record["trials"]
+    check_feasible(record)
+    space = SearchSpace.from_experiment(ExperimentSpec.from_dict(doc))
+    want = [[(a.name, a.value) for a in space.decode(u)]
+            for u in qmc.Sobol(len(space), scramble=True, seed=0).random_base2(4)[:len(trials)]]
+    got = [[(p["name"], p["value"]) for p in t["parameterAssignments"]] for t in trials]
+    check(got == want, f"sobol: the assignments are not scipy's stream:\n{got}\n{want}")
+    log(f"search: sobol: the {len(got)} assignments equal scipy's qmc.Sobol({len(space)}, scramble=True, seed=0) "
+        "stream")
+
+
+def check_bayesopt(record) -> None:
+    """A trial asked for once n_initial_points trials had ended carries a
+    bo-acq label of the portfolio; one asked for before carries none. (One
+    card runs the trials in turn, so the trials asked for as the first ones
+    end are random too.)"""
+    from katib_tpu_torch.suggest.bayesopt import ACQ_LABEL, PORTFOLIO
+
+    doc, trials = record["experiment"]["spec"], record["trials"]
+    n_initial = int({s["name"]: s["value"] for s in doc["algorithm"]["algorithmSettings"]}["n_initial_points"])
+    check_feasible(record)
+    ended = sorted(t["completionTime"] for t in trials)
+    labelled = 0
+    for t in trials:
+        created = next(c["lastTransitionTime"] for c in t["conditions"] if c["type"] == "Pending")
+        model_based = sum(e <= created for e in ended) >= n_initial
+        label = t["labels"].get(ACQ_LABEL)
+        check((label in PORTFOLIO) == model_based and (model_based or label is None),
+              f"bayesian-optimization: {t['name']} ({sum(e <= created for e in ended)} trials ended before it) "
+              f"carries label {label!r}")
+        labelled += model_based
+    check(labelled > 0, "bayesian-optimization: no trial came from the GP")
+    log(f"search: bayesian-optimization: {labelled} of {len(trials)} trials from the GP, labelled "
+        f"{[t['labels'].get(ACQ_LABEL) for t in trials]}")
+
+
+def check_pbt(record) -> None:
+    """Generation 2 reached; every parent names a trial of the experiment;
+    every trial's checkpoint holds step 20 x (generation + 1); no trial
+    reused a result; every trial carries the lineage label."""
+    from katib_tpu_torch.suggest.pbt import GENERATION_LABEL, PARENT_LABEL
+
+    doc, trials = record["experiment"]["spec"], record["trials"]
+    check_feasible(record)
+    names = {t["name"] for t in trials}
+    generations = []
+    for t in trials:
+        generation = int(t["labels"][GENERATION_LABEL])
+        generations.append(generation)
+        parent = t["labels"].get(PARENT_LABEL)
+        check(parent is None or parent in names, f"simple-pbt: {t['name']}'s parent {parent} is not a trial")
+        check(t["labels"].get("checkpoint-lineage") == "1" and t["conditions"][-1]["reason"] != "DuplicateResultReused",
+              f"simple-pbt: {t['name']} has no lineage label or reused a result")
+        with open(os.path.join(record["root"], doc["name"], "pbt", t["name"], "training.json")) as f:
+            step = json.load(f)["step"]
+        check(step == 20 * (generation + 1), f"simple-pbt: {t['name']} of generation {generation} is at step {step}")
+    sizes = [generations.count(g) for g in range(max(generations) + 1)]
+    log(f"search: simple-pbt: trials per generation {sizes}; every checkpoint at step 20 x (generation + 1)")
+    check(max(generations) >= 2, f"simple-pbt: reached generation {max(generations)} only")
+
+
+def bayesopt_host_times(repeats=5) -> None:
+    """Host ms of one get_suggestions call of 3 on bayesian-optimization.json
+    (2 parameters, gp_hedge, 5 initial points) at histories of 12 and 200
+    Succeeded trials, random_state set; median of ``repeats``."""
+    import numpy as np
+
+    from katib_tpu_torch.api.spec import ExperimentSpec, Observation, ParameterAssignment
+    from katib_tpu_torch.api.status import Trial, TrialCondition
+    from katib_tpu_torch.suggest.base import SuggestionRequest
+    from katib_tpu_torch.suggest.bayesopt import ACQ_LABEL, PORTFOLIO, BayesianOptimization
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "bayesian-optimization.json")
+    with open(path) as f:
+        doc = json.load(f)
+    doc["algorithm"]["algorithmSettings"].append({"name": "random_state", "value": "0"})
+    exp = ExperimentSpec.from_dict(doc)
+    for n in BO_HOST_HISTORIES:
+        rng = np.random.default_rng(n)
+        trials = []
+        for i in range(n):
+            lr, momentum = rng.uniform(0.01, 0.5), rng.uniform(0.5, 0.99)
+            loss = repr(float((np.log(lr) - np.log(0.08)) ** 2 + (momentum - 0.9) ** 2))
+            t = Trial(name=f"t{i}", experiment_name=doc["name"],
+                      parameter_assignments=[ParameterAssignment("lr", repr(lr)),
+                                             ParameterAssignment("momentum", repr(momentum))],
+                      labels={} if i < 5 else {ACQ_LABEL: PORTFOLIO[i % 3]})
+            t.condition = TrialCondition.SUCCEEDED
+            t.observation = Observation.from_dict({"metrics": [{"name": "loss", "min": loss, "max": loss,
+                                                                "latest": loss}]})
+            trials.append(t)
+        request = SuggestionRequest(exp, trials, 3)
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            reply = BayesianOptimization().get_suggestions(request)
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(len(reply.assignments) == 3 and all(a.labels.get(ACQ_LABEL) in PORTFOLIO
+                                                      for a in reply.assignments), "a timed BO call failed")
+        log(f"search: bayesian-optimization host time of one call of 3 at {n} trials (2 parameters, gp_hedge): "
+            f"median {sorted(times)[len(times) // 2]:.2f} host ms of {repeats} ({', '.join(f'{t:.2f}' for t in times)})")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the DARTS search and its retraining
 # ---------------------------------------------------------------------------
 
 def phase_darts(torch) -> None:
     card = device_line()
     with torch_default_tf32(torch):
         for mode, steps in (("jvp", 3), ("fd", 1)):
-            darts_step_check(torch, card, mode, steps)
-        darts_full_width(torch, card)
-        genotype = run_darts_search(torch, card)
-        run_darts_retrain(torch, card, genotype)
+            with timed(torch, f"darts: {mode} step check"):
+                darts_step_check(torch, card, mode, steps)
+        with timed(torch, "darts: full-width step"):
+            darts_full_width(torch, card)
+        with timed(torch, "darts: darts.json"):
+            genotype = run_darts_search(torch, card)
+        with timed(torch, "darts: darts-retrain.json"):
+            run_darts_retrain(torch, card, genotype)
 
 
 def _darts_search(torch, device, settings, num_layers):
@@ -930,7 +1145,8 @@ def darts_full_width(torch, card, steps=5) -> None:
     channels, 4 nodes, the 8 operations) at the reference's batch 128, or
     64 where 128 does not fit: CUDA-event time per step (median of
     ``steps``), peak memory, and, under the profiler, device operations and
-    busy share over two steps."""
+    busy share over one step (processing the profile of a step of 118 609
+    device operations takes about a minute and a half of host time)."""
     import statistics
 
     from torch.autograd import DeviceType
@@ -942,7 +1158,7 @@ def darts_full_width(torch, card, steps=5) -> None:
             torch.cuda.reset_peak_memory_stats()
             search = _darts_search(torch, "cuda", dict(DARTS_FULL, batch_size=str(batch)), 8)
             search.build(1000)
-            batches = _darts_batches(torch, steps + 3, batch, "cuda")
+            batches = _darts_batches(torch, steps + 2, batch, "cuda")
             search.step(*batches[0])  # first use: cuDNN's algorithm choice
             torch.cuda.synchronize()
             times, walls = [], []
@@ -968,18 +1184,18 @@ def darts_full_width(torch, card, steps=5) -> None:
         f"peak memory {peak:.2f} GiB")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for tb, vb in batches[steps + 1:steps + 3]:
+        for tb, vb in batches[steps + 1:steps + 2]:
             search.step(tb, vb)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+        wall_ms = (time.perf_counter() - t0) * 1e3
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    device_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3 / 2
+    device_ms = sum(e.time_range.elapsed_us() for e in on_device) / 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "darts_step_profile.txt"), "w") as f:
         f.write(table)
-    log(f"darts [{card}]: profiler, 2 full-width steps: wall {wall_ms:.1f} ms/step (profiled), device busy "
-        f"{device_ms:.1f} ms/step ({100 * device_ms / wall_ms:.1f}% busy), {len(on_device) / 2:.0f} device ops/step; "
+    log(f"darts [{card}]: profiler, 1 full-width step: wall {wall_ms:.1f} ms/step (profiled), device busy "
+        f"{device_ms:.1f} ms/step ({100 * device_ms / wall_ms:.1f}% busy), {len(on_device)} device ops/step; "
         f"top device time:\n{table}")
     del search, batches
     torch.cuda.empty_cache()
@@ -1125,17 +1341,19 @@ def run_darts_retrain(torch, card, genotype: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the ENAS search
+# phase 9: the ENAS search
 # ---------------------------------------------------------------------------
 
 def phase_enas(torch) -> None:
     card = device_line()
     with torch_default_tf32(torch):
-        enas_child_check(torch, card)
-        enas_empty_map_check(torch, card)
-        enas_controller_check(torch, card)
-        for label, arc in (("widest", enas_widest_arc()), ("sampled", enas_sampled_arc(torch))):
-            enas_full_width(torch, card, label, arc)
+        with timed(torch, "enas: card against CPU"):
+            enas_child_check(torch, card)
+            enas_empty_map_check(torch, card)
+            enas_controller_check(torch, card)
+        with timed(torch, "enas: full-width steps"):
+            for label, arc in (("widest", enas_widest_arc()), ("sampled", enas_sampled_arc(torch))):
+                enas_full_width(torch, card, label, arc)
         run_enas_search(torch, card)
 
 
@@ -1446,7 +1664,7 @@ def main(argv=None) -> int:
     phases = {"build": lambda: phase_build(torch), "kernels": lambda: phase_kernels(torch, record),
               "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record),
               "mnist": lambda: phase_mnist(torch), "suggest": lambda: phase_suggest(torch),
-              "darts": lambda: phase_darts(torch),
+              "search": lambda: phase_search(torch), "darts": lambda: phase_darts(torch),
               "enas": lambda: phase_enas(torch)}
     try:
         for phase, run in phases.items():

@@ -20,7 +20,10 @@ trial ends as EarlyStopped, which counts as completed, not failed.
 How many trials to ask for is Katib's ReconcileTrials
 (``controller/suggestion.py``). With ``reuseDuplicateResults``, a new trial
 whose assignments equal those of a Succeeded trial takes that trial's
-metric log and succeeds at once, without a device. Replicas, tenancy,
+metric log and succeeds at once, without a device; a trial whose
+suggester keeps a checkpoint lineage (PBT) gets its directory as
+``ctx.checkpoint_dir``, is labelled ``checkpoint-lineage``, and is never
+reused or reused from. Replicas, tenancy,
 recovery, the compile service, packing and fused populations are later
 slices of the port.
 """
@@ -31,6 +34,7 @@ import dataclasses
 import importlib
 import json
 import os
+import shutil
 import threading
 import time
 import traceback
@@ -78,6 +82,7 @@ PORTED_TRIALS = frozenset({
     "models.darts_trainer:run_darts_hpo_trial",
     "models.darts_derived:run_darts_retrain_trial",
     "models.enas_child:run_enas_trial",
+    "models.simple_pbt:run_pbt_trial",
 })
 
 
@@ -254,6 +259,7 @@ class ExperimentController:
         self._cv = threading.Condition()
         self._running: Dict[str, tuple] = {}  # trial name -> (thread, kill event, slots)
         self._stoppers: Dict[str, Any] = {}  # experiment name -> its early stopper
+        self._suggesters: Dict[str, suggest_base.Suggester] = {}  # experiment name -> its run's suggester
 
     # -- experiments ----------------------------------------------------------
 
@@ -267,6 +273,10 @@ class ExperimentController:
         exp.status.set_condition(ExperimentCondition.CREATED, message="Experiment is created")
         self._experiments[spec.name] = exp
         self._trials[spec.name] = {}
+        if self.root_dir:
+            # the port does not resume an experiment: a PBT lineage left on
+            # this root by an earlier run of the same name is stale
+            shutil.rmtree(self._pbt_root(spec.name), ignore_errors=True)
         if spec.early_stopping is not None:
             self._stoppers[spec.name] = create_early_stopper(spec.early_stopping.algorithm_name)
         return exp
@@ -284,6 +294,7 @@ class ExperimentController:
         exp = self._experiments[name]
         spec = exp.spec
         suggester = suggest_base.create(spec.algorithm.algorithm_name, **self._suggester_kwargs(spec))
+        self._suggesters[name] = suggester  # its trials' checkpoint directories, while they run
         deadline = None if timeout is None else time.monotonic() + timeout
         suggestion_end = False
         settings: Dict[str, str] = {}  # handed back by the suggester's replies
@@ -319,6 +330,8 @@ class ExperimentController:
                     for assignment in reply.assignments:
                         trial = Trial.from_assignment(assignment, name)
                         trial.set_condition(TrialCondition.PENDING, message="waiting for devices")
+                        if suggester.checkpoint_dir(trial.name):
+                            trial.labels[LINEAGE_LABEL] = "1"  # trains from a parent's checkpoint
                         if spec.reuse_duplicate_results:
                             self._reuse_duplicate(exp, trial)
                         self._trials[name][trial.name] = trial
@@ -327,17 +340,26 @@ class ExperimentController:
                 self._dispatch(exp)
                 self._cv.wait(timeout=0.5)
         self._stop_trials(name)
+        del self._suggesters[name]
         update_experiment_status(exp, list(self._trials[name].values()), suggestion_end)
         self._save(exp)
         return exp
 
     def _suggester_kwargs(self, spec: ExperimentSpec) -> Dict[str, Any]:
         """ENAS keeps its controller's state in the experiment's directory
-        and runs the controller on the controller's first device."""
-        if spec.algorithm.algorithm_name != "enas":
+        and runs the controller on the controller's first device; PBT keeps
+        its queue and its trials' checkpoint lineage in ``<experiment>/pbt``.
+        Without a root directory each falls back to its own default."""
+        algo = spec.algorithm.algorithm_name
+        if algo == "pbt":
+            return {"checkpoint_root": self._pbt_root(spec.name) if self.root_dir else None}
+        if algo != "enas":
             return {}
         device = self.devices[0] if isinstance(self.devices[0], torch.device) else None
         return {"state_dir": os.path.join(self.root_dir, spec.name) if self.root_dir else None, "device": device}
+
+    def _pbt_root(self, name: str) -> str:
+        return os.path.join(self.root_dir, name, "pbt")
 
     # -- trials ---------------------------------------------------------------
 
@@ -396,7 +418,7 @@ class ExperimentController:
         ctx = TrialContext(
             trial_name=trial.name, experiment_name=exp.name, assignments=trial.assignments_dict(),
             reporter=MetricsReporter(self.obs_store, trial.name, kill_event=kill, monitor=monitor),
-            devices=slots,
+            devices=slots, checkpoint_dir=self._suggesters[exp.name].checkpoint_dir(trial.name),
         )
         outcome, message = TrialCondition.SUCCEEDED, ""
         try:

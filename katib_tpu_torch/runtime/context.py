@@ -1,6 +1,7 @@
 """What a trial function receives — the port's own copy of
 ``katib_tpu/runtime/context.py``, with ``torch_devices()`` in place of
-``jax_devices()`` and ``mesh()``."""
+``jax_devices()`` and ``mesh()``. ``checkpoint_dir`` is the trial's PBT
+lineage directory (None for other algorithms)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ class TrialContext:
     assignments: Dict[str, str]
     reporter: MetricsReporter
     devices: Optional[List[Any]] = None  # the device slots allocated to this trial
+    checkpoint_dir: Optional[str] = None
 
     def report(self, **metrics: float) -> None:
         """Push metrics to the observation store; raises TrialKilled when

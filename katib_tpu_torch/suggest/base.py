@@ -52,6 +52,11 @@ class Suggester(abc.ABC):
     def validate_algorithm_settings(self, experiment: ExperimentSpec) -> None:
         """Raise ValueError on bad settings, before the first suggestion."""
 
+    def checkpoint_dir(self, trial_name: str) -> Optional[str]:
+        """The trial's checkpoint directory when the suggester keeps a
+        checkpoint lineage (PBT), else None."""
+        return None
+
     @staticmethod
     def search_space(experiment: ExperimentSpec) -> SearchSpace:
         return SearchSpace.from_experiment(experiment)
@@ -108,5 +113,6 @@ def create(name: str, **kwargs) -> Suggester:
 
 
 def _ensure_builtins() -> None:
-    from . import cmaes, grid, hyperband, random_search, tpe  # noqa: F401  (registration side effects)
+    # imported for their registration side effects
+    from . import bayesopt, cmaes, grid, hyperband, pbt, random_search, sobol, tpe  # noqa: F401
     from .nas import darts, enas  # noqa: F401

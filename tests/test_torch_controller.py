@@ -197,7 +197,7 @@ def test_jax_package_entry_points_resolve_to_the_port(monkeypatch):
     fn = ce.resolve_entry_point(spec.TrialTemplate(entry_point="katib_tpu.models.mnist_cnn:run_mnist_trial"))
     assert fn.__module__ == "katib_tpu_torch.models.mnist_cnn"
     monkeypatch.setattr(ce.importlib, "import_module", lambda name: pytest.fail(f"imported {name}"))
-    for entry in ("katib_tpu.models.simple_pbt:run_pbt_trial", "katib_tpu:main"):
+    for entry in ("katib_tpu.models.simple_pbt:run_pbt_trial_packed", "katib_tpu:main"):
         with pytest.raises(ce.ValidationError, match="not yet ported"):
             ce.resolve_entry_point(spec.TrialTemplate(entry_point=entry))
 

@@ -12,13 +12,14 @@
 - in a fresh interpreter, beside this module's JAX work: every
   examples/*.json and examples/nas/*.json with an entryPoint validates
   through the port or raises ValidationError, and then every module of the
-  port imports, neither step importing jax or katib_tpu; no import
+  port imports, neither step importing jax, katib_tpu or scipy; no import
   statement of the port names them;
 - shrunk copies of examples/random.json, tpe.json, grid.json,
-  hyperband.json and early-stopping-medianstop.json run end to end through
-  the port's CLI, side by side (the MNIST trial at full width on 32 or 64
-  training images in batches of 16), a median-stop trial ending
-  EarlyStopped.
+  hyperband.json, early-stopping-medianstop.json, sobol.json and
+  bayesian-optimization.json run end to end through the port's CLI, side
+  by side (the MNIST trial at full width on 32 or 64 training images in
+  batches of 16), a median-stop trial ending EarlyStopped, the Sobol
+  trials on the seed-0 stream and the GP labelling its picks.
 """
 
 import ast
@@ -55,6 +56,9 @@ from katib_tpu_torch.models.convert import mnist_params_from_flax
 from katib_tpu_torch.runtime.context import TrialContext
 from katib_tpu_torch.runtime.metrics import MetricsReporter
 from katib_tpu_torch.suggest import base as suggest
+from katib_tpu_torch.suggest import bayesopt
+from katib_tpu_torch.suggest.internal import sobol_engine
+from katib_tpu_torch.suggest.internal.search_space import SearchSpace
 from katib_tpu_torch.utils import backend, datasets
 
 REPO = Path(__file__).resolve().parents[1]
@@ -380,15 +384,29 @@ def _medianstop_doc():
     return doc
 
 
+def _bayesian_optimization_doc():
+    """n_initial_points 2. One CPU slot runs the trials in turn: the first
+    two are asked for together, the 3rd when one trial has ended (so it is
+    random too), the 4th when two have (so the GP picks it)."""
+    doc = _shrunk("bayesian-optimization", maxTrialCount=4, parallelTrialCount=2, maxFailedTrialCount=2)
+    settings = {s["name"]: s["value"] for s in doc["algorithm"]["algorithmSettings"]}
+    settings.update(n_initial_points="2", random_state="4")
+    doc["algorithm"]["algorithmSettings"] = [{"name": k, "value": v} for k, v in settings.items()]
+    return doc
+
+
 SHRUNK_EXAMPLES = {
     "random": lambda: _shrunk("random", maxTrialCount=2, parallelTrialCount=2, maxFailedTrialCount=2),
     "tpe": lambda: _shrunk("tpe", maxTrialCount=2, parallelTrialCount=2, maxFailedTrialCount=2),
     "grid": lambda: _shrunk("grid", maxTrialCount=2, parallelTrialCount=2, maxFailedTrialCount=2),
     "hyperband": _hyperband_doc,
     "early-stopping-medianstop": _medianstop_doc,
+    "sobol": lambda: _shrunk("sobol", maxTrialCount=4, parallelTrialCount=2, maxFailedTrialCount=2),
+    "bayesian-optimization": _bayesian_optimization_doc,
 }
 
-JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "katib_tpu")
+# never imported by the port (scipy: the port keeps its own Sobol engine and GP)
+JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "katib_tpu", "scipy")
 
 _FRESH_INTERPRETER = textwrap.dedent(
     """
@@ -484,11 +502,11 @@ def _imports(path):
 
 def test_the_port_imports_nothing_of_jax():
     """No import statement of the port, at module level or inside a
-    function, names jax, flax, optax or the JAX package: a run imports
+    function, names jax, flax, optax, the JAX package or scipy: a run imports
     nothing of them whatever path it takes (entry points are resolved
     through the port's table; see the test below)."""
     sources = sorted((REPO / "katib_tpu_torch").rglob("*.py"))
-    assert len(sources) >= 38
+    assert len(sources) >= 42
     bad = {str(f.relative_to(REPO)): m for f in sources for m in _imports(f) if m.split(".")[0] in JAX_MODULES}
     assert bad == {}
 
@@ -496,28 +514,28 @@ def test_the_port_imports_nothing_of_jax():
 def test_examples_validate_or_are_refused_without_importing_jax(fresh_interpreter, port_run):
     """Every example with an entryPoint either validates through the port
     (a katib_tpu. trial that is ported runs its counterpart) or raises
-    ValidationError; neither jax nor any katib_tpu module was imported by
+    ValidationError; neither jax, any katib_tpu module nor scipy was imported by
     validation or by importing every module of the port, in a fresh
     interpreter, nor newly by the shrunk examples' runs here."""
     result = fresh_interpreter()
     validated = result["validated"]
     assert len(validated) == 17
     valid = sorted(Path(p).stem for p, outcome in validated.items() if outcome == "valid")
-    assert valid == ["cma-es", "cma-es-ipop", "darts", "darts-retrain", "early-stopping-medianstop", "enas",
-                     "grid", "hyperband", "multivariate-tpe", "random", "reuse-duplicate-results", "tpe"]
+    assert valid == ["bayesian-optimization", "cma-es", "cma-es-ipop", "darts", "darts-retrain",
+                     "early-stopping-medianstop", "enas", "grid", "hyperband", "multivariate-tpe", "random",
+                     "reuse-duplicate-results", "simple-pbt", "sobol", "tpe"]
     refused = {Path(p).stem: outcome for p, outcome in validated.items() if outcome != "valid"}
-    assert sorted(refused) == ["bayesian-optimization", "distributed-lm", "multihost-lm", "simple-pbt", "sobol"]
+    assert sorted(refused) == ["distributed-lm", "multihost-lm"]
     assert all(outcome.startswith("ValidationError: ") for outcome in refused.values())
-    assert "unknown algorithm 'bayesianoptimization'" in refused["bayesian-optimization"]
-    assert "unknown algorithm 'sobol'" in refused["sobol"]
-    assert "not yet ported" in refused["simple-pbt"] and \
-        "katib_tpu.models.simple_pbt:run_pbt_trial" in refused["simple-pbt"]
     assert "numDevices=4" in refused["distributed-lm"] and "one card" in refused["distributed-lm"]
     assert "multi-host trials" in refused["multihost-lm"]
     assert {"katib_tpu_torch.cli", "katib_tpu_torch.models.mnist_cnn", "katib_tpu_torch.models.darts_trainer",
             "katib_tpu_torch.models.darts_derived", "katib_tpu_torch.suggest.nas.darts",
             "katib_tpu_torch.models.enas_child", "katib_tpu_torch.suggest.nas.enas", "katib_tpu_torch.suggest.cmaes",
-            "katib_tpu_torch.api.validation", "katib_tpu_torch.controller.suggestion"} <= set(result["modules"])
+            "katib_tpu_torch.api.validation", "katib_tpu_torch.controller.suggestion",
+            "katib_tpu_torch.suggest.sobol", "katib_tpu_torch.suggest.internal.sobol_engine",
+            "katib_tpu_torch.suggest.bayesopt", "katib_tpu_torch.suggest.pbt",
+            "katib_tpu_torch.models.simple_pbt"} <= set(result["modules"])
     assert result["after_validation"] == [] and result["after_imports"] == []
     assert port_run["imported"] == []
 
@@ -544,6 +562,13 @@ def test_shrunk_example_runs_through_the_port_cli(port_run, name):
         assert conditions == {"Succeeded", "EarlyStopped"}
     else:
         assert conditions == {"Succeeded"}
+    if name == "sobol":  # the first 4 points of the seed-0 stream over the 4 parameters
+        points = sobol_engine.SobolEngine(4, seed=0).random(4)
+        space = SearchSpace.from_experiment(spec.ExperimentSpec.from_dict(record["experiment"]["spec"]))
+        assert [[(a["name"], a["value"]) for a in t["parameterAssignments"]] for t in trials] == \
+            [[(a.name, a.value) for a in space.decode(u)] for u in points]
+    if name == "bayesian-optimization":  # random until 2 trials have ended, then the GP's
+        assert [t["labels"].get(bayesopt.ACQ_LABEL) in bayesopt.PORTFOLIO for t in trials] == [False] * 3 + [True]
     if name == "hyperband":
         assigned = [{a["name"]: a["value"] for a in t["parameterAssignments"]} for t in trials]
         assert [a["num_epochs"] for a in assigned] == ["1", "1", "1", "3", "3", "3"]
