@@ -48,7 +48,10 @@ Phases, all of them on every run, each fatal on failure:
              unchanged, through the port's CLI on the card (full width,
              60 000 images): every trial must succeed with finite loss and
              accuracy, and Hyperband must run its brackets to the trial
-             budget. The CLI runs of phases 5-7 hold cuDNN to its
+             budget, or to the objective's goal, at which every trial still
+             pending must be Killed unstarted, as Katib ends a run (the
+             suggester is unseeded, so a 9-epoch trial may reach the goal
+             while the next bracket waits for the card). The CLI runs of phases 5-7 hold cuDNN to its
              deterministic algorithms (deterministic_cudnn), so a trial's
              metrics are a function of its assignments: the MNIST step run
              twice on the card under that hold must agree bit for bit;
@@ -63,8 +66,9 @@ Phases, all of them on every run, each fatal on failure:
              (reason DuplicateResultReused), with its source's metric log and
              in under 0.1 s;
 7. search  — with torch's default TF32 flags too: examples/sobol.json,
-             bayesian-optimization.json and simple-pbt.json, unchanged,
-             through the port's CLI on the card: every trial must succeed
+             cut in a copy to SOBOL_MAX_TRIALS trials (the cut is
+             printed), bayesian-optimization.json and simple-pbt.json,
+             unchanged, through the port's CLI on the card: every trial must succeed
              with finite metrics inside the feasible space; the Sobol
              trials must carry, in order and as strings, the decode of
              scipy's qmc.Sobol(2, scramble=True, seed=0) stream; a BO trial
@@ -82,16 +86,18 @@ Phases, all of them on every run, each fatal on failure:
              darts.json's 8 operations) on the card against the same steps
              on the CPU from the same weights and batches (DARTS_TOL); the
              full-width search step (8 layers, 16 channels, 4 nodes, batch
-             128, or 64 if 128 does not fit) timed with CUDA events, its
-             peak memory, and its device operations and busy share under
-             the profiler; then examples/nas/darts.json through the port's
+             128, or 64 if 128 does not fit) timed with CUDA events and its
+             peak memory, and the device operations and busy share of the
+             same width cut to DARTS_PROFILE_LAYERS layers under the
+             profiler; then examples/nas/darts.json through the port's
              CLI on the card, its num_epochs cut in a copy to
              DARTS_SEARCH_EPOCHS and its images to DARTS_SEARCH_EXAMPLES
              (its trial must succeed with a finite
              accuracy and print a Best-Genotype of the search space's
              operations, two edges a node), and
              examples/nas/darts-retrain.json on that genotype, cut to 2
-             trials of 2 epochs (both must succeed with finite metrics);
+             trials of DARTS_RETRAIN_EPOCHS epochs (both must succeed with
+             finite metrics);
 9. enas    — with torch's default TF32 flags too: three Adam steps of a
              small ENAS child (every op kind, skips to the image, a
              reduction whose map is padded beside larger ones, depth
@@ -111,7 +117,33 @@ Phases, all of them on every run, each fatal on failure:
              cut is printed): every trial must succeed with a finite
              accuracy each epoch (and a finite loss unless its network
              averages an empty map), and the controller's parameters must
-             change from one suggestion round to the next.
+             change from one suggestion round to the next;
+10. command — command trials, each a process of its own that the
+             controller starts with CUDA_VISIBLE_DEVICES naming the trial's
+             card, its metrics read by the StdOut collector, through the
+             port's CLI: examples/trial-conditions.json, unchanged (every
+             trial with lr > 0.3 Failed by its failure condition, every other
+             Succeeded with score 1 - (lr - 0.05) ** 2 as the child computes
+             it, and the experiment's end as Katib's rule for its counts
+             says); examples/pytorch-subprocess.json, unchanged (it ends as
+             Katib's rules say: by its goal of 0.99 once a trial reaches
+             it, which the blob task does in its first or second trial, the
+             trials not yet run then Killed; every trial that ran Succeeded
+             with 3 finite values each of accuracy and loss, and retain:
+             false left no Succeeded trial's directory); then
+             katib_tpu_torch/examples/mnist-command-h100.json: 3 MNIST trials
+             on the card, each a child process on cuda:0 of its own, whose
+             per-epoch loss and accuracy must equal bit for bit those of the
+             same assignments run in-process through the port's entryPoint
+             path on cuda:0 under deterministic_cudnn and torch's default
+             TF32 flags, as the child runs (else the largest difference is
+             printed and held to MNIST_TOL); each trial's wall time beside
+             the in-process trial's, and the difference, the cost of a
+             process, and that cost taken apart in one more child (start,
+             import torch, CUDA context, the MNIST data on the card, the
+             first step). Where ``python`` on PATH is missing or is not this
+             interpreter, each copy names this interpreter for argv[0]
+             (printed); the port never rewrites a user's command.
 
 Last, it imports every module of the port and checks that nothing of JAX
 or of the JAX package was imported.
@@ -187,6 +219,15 @@ DARTS_SEARCH_EPOCHS = "1"
 # (1169.5 s of phases with 12 800 images, PERF.md §6); printed with the
 # epochs' cut.
 DARTS_SEARCH_EXAMPLES = "2560"
+# the full-width search step is timed at the paper's 8 layers; the profiler
+# takes one step at this many (the same cells, channels, nodes and batch):
+# reading back the profile of an 8-layer step (118 602 device operations)
+# took 90-107 s of host time, the largest piece of the script's time on a
+# slow host (PERF.md §6).
+DARTS_PROFILE_LAYERS = 3
+# examples/nas/darts-retrain.json trains 10 epochs a trial; the phase's copy
+# trains this many (and 2 of its 8 trials), for the script's time; printed.
+DARTS_RETRAIN_EPOCHS = 1
 # ENAS child steps, f32, card against CPU: losses and parameters after three
 # Adam steps, absolute; the CPU tests' tolerance against the JAX package's
 # step (tests/test_torch_enas.py) and MNIST_TOL.
@@ -209,14 +250,19 @@ ENAS_MAX_TRIALS = 4
 # a copy cut to this many, for the script's time, which still ends on a
 # short generation ([6, 6, 4]); the cut is printed.
 CMAES_IPOP_MAX_TRIALS = 16
-# examples/random.json and multivariate-tpe.json run 12 trials each; the
-# phases run copies cut to these, for the script's time on a slow host
-# (PERF.md §6); the cuts are printed. hyperband.json stays whole:
-# with fewer than its 18 trials the trial budget narrows its first
-# bracket's rungs.
-RANDOM_MAX_TRIALS = 8
+# examples/random.json, multivariate-tpe.json and sobol.json run 12 trials
+# each; the phases run copies cut to these, for the script's time on a slow
+# host (1057.6 s in all on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6);
+# the cuts are printed.
+# hyperband.json stays whole: with fewer than its 18 trials the trial
+# budget narrows its first bracket's rungs.
+RANDOM_MAX_TRIALS = 4
 MULTIVARIATE_TPE_MAX_TRIALS = 8
+SOBOL_MAX_TRIALS = 8
 JAX_MODULES = ("jax", "jaxlib", "flax", "optax", "katib_tpu")  # never imported by the port
+COMMAND_MODULES = ("katib_tpu_torch.api.defaults", "katib_tpu_torch.controller.conditions",
+                   "katib_tpu_torch.controller.executor", "katib_tpu_torch.runtime.tailer",
+                   "katib_tpu_torch.runtime.tfevent")
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "smoke_out")  # git-ignored
 
 
@@ -802,10 +848,13 @@ def mnist_step_check(torch, steps=5, batch=64) -> None:
 
 def run_example(torch, phase, name, trial_metrics=("loss", "accuracy"), max_trials=None) -> dict:
     """examples/<name>.json, unchanged (or a copy cut to ``max_trials``),
-    through the port's CLI on the card; every trial must succeed with one
-    finite value of the objective and of each of ``trial_metrics`` (the
-    MNIST trial reports loss and accuracy) per epoch. Returns the
-    experiment's record, its root under "root"."""
+    through the port's CLI on the card; every trial that ran must succeed
+    with one finite value of the objective and of each of ``trial_metrics``
+    (the MNIST trial reports loss and accuracy) per epoch. The run ends at
+    the trial budget, or, as Katib ends it, at the objective's goal once a
+    trial has reached it; then every trial still pending is Killed without
+    having started. Returns the experiment's record, its root under
+    "root"."""
     import tempfile
 
     from katib_tpu_torch import cli
@@ -830,18 +879,25 @@ def run_example(torch, phase, name, trial_metrics=("loss", "accuracy"), max_tria
     with open(os.path.join(root, doc["name"], "experiment.json")) as f:
         record = json.load(f)
     status, trials = record["experiment"]["status"], record["trials"]
-    walls = sorted(t["completionTime"] - t["startTime"] for t in trials)
+    ran = [t for t in trials if t["startTime"] is not None]
+    walls = sorted(t["completionTime"] - t["startTime"] for t in ran) or [math.nan]
     log(f"{phase}: examples/{name}.json through the port's CLI: rc {rc}, {status['condition']} "
-        f"({status['reason']}), {status['trialsSucceeded']}/{len(trials)} trials succeeded, "
+        f"({status['reason']}), {status['trialsSucceeded']}/{len(trials)} trials succeeded, {len(ran)} ran, "
         f"experiment wall {wall:.1f}s; trial wall min {walls[0]:.2f}s, median {walls[len(walls) // 2]:.2f}s, "
         f"max {walls[-1]:.2f}s")
     check(rc == 0 and status["condition"] == "Succeeded", f"examples/{name}.json did not succeed")
-    check(len(trials) == doc["maxTrialCount"], f"examples/{name}.json ran {len(trials)} trials")
     objective = doc["objective"]
     metrics = list(dict.fromkeys([objective["objectiveMetricName"], *objective.get("additionalMetricNames", []),
                                   *trial_metrics]))
     for t in trials:
         a = {p["name"]: p["value"] for p in t["parameterAssignments"]}
+        if t["startTime"] is None:
+            log(f"{phase}:   {t['name']} {t['condition']} ({t['message']}) {' '.join(f'{k}={v}' for k, v in a.items())}"
+                " never started")
+            check(status["reason"] == "ExperimentGoalReached" and t["condition"] == "Killed"
+                  and t["message"] == "experiment ended",
+                  f"trial {t['name']} never started, and is {t['condition']} ({t['message']!r}) at {status['reason']}")
+            continue
         rows = record["logs"][t["name"]]
         values = {m: [float(v) for _, metric, v in rows if metric == m] for m in metrics}
         epochs = int(a.get("num_epochs", "1"))
@@ -852,6 +908,18 @@ def run_example(torch, phase, name, trial_metrics=("loss", "accuracy"), max_tria
         check(t["condition"] == "Succeeded", f"trial {t['name']} did not succeed:\n{t.get('message', '')}")
         check(all(len(vals) == epochs and all(math.isfinite(v) for v in vals) for vals in values.values()),
               f"trial {t['name']}: {values} is not one finite value of each metric per epoch")
+    if status["reason"] == "ExperimentGoalReached":
+        # the objective's strategy is its type (min for minimize), so the
+        # goal is reached by a reported value at or beyond it
+        minimize, goal = objective["type"] == "minimize", float(objective["goal"])
+        reached = [float(v) for t in ran for _, m, v in record["logs"][t["name"]]
+                   if m == objective["objectiveMetricName"] and (float(v) <= goal if minimize else float(v) >= goal)]
+        check(bool(reached), f"examples/{name}.json ended GoalReached, but no trial reported "
+              f"{objective['objectiveMetricName']} {'<=' if minimize else '>='} {goal}")
+        log(f"{phase}: examples/{name}.json reached its goal ({objective['objectiveMetricName']} "
+            f"{reached[0]} against {goal}) after {len(ran)} of {doc['maxTrialCount']} trials")
+    else:
+        check(len(trials) == doc["maxTrialCount"], f"examples/{name}.json ran {len(trials)} trials")
     log(f"{phase}: examples/{name}.json: objective {objective['type']} {objective['objectiveMetricName']}, "
         f"best {status['currentOptimalTrial']['bestTrialName']} "
         f"{[(p['name'], p['value']) for p in status['currentOptimalTrial']['parameterAssignments']]}")
@@ -930,12 +998,15 @@ def check_hyperband_rungs(record) -> None:
     """r_l 9, eta 3, 18 trials: 9 of 1 epoch, the best 3 of them for 3, the
     best of those for 9, then 5 new ones of 3 (the trial budget cuts the
     second bracket). "Best" is Hyperband's ranking: the lowest loss a trial
-    reported (a trial with none ranks first, as the suggester ranks it)."""
+    reported (a trial with none ranks first, as the suggester ranks it).
+    A run that reached its goal early holds the rungs it made to this."""
     trials = record["trials"]
     params = [{p["name"]: p["value"] for p in t["parameterAssignments"]} for t in trials]
     budgets = [p["num_epochs"] for p in params]
     log(f"mnist: hyperband budgets (num_epochs) in order: {budgets}")
-    check(budgets[:13] == ["1"] * 9 + ["3"] * 3 + ["9"] and set(budgets[13:]) == {"3"},
+    expected = ["1"] * 9 + ["3"] * 3 + ["9"] + ["3"] * 5
+    check(budgets == expected[:len(budgets)] and (len(budgets) == len(expected)
+                                                  or record["experiment"]["status"]["reason"] == "ExperimentGoalReached"),
           f"hyperband's brackets are off: {budgets}")
 
     def best(indices, k):
@@ -948,9 +1019,15 @@ def check_hyperband_rungs(record) -> None:
     def config(i):
         return params[i]["lr"], params[i]["momentum"]
 
+    if len(trials) < 12:
+        log("mnist: hyperband reached its goal in its first rung; no promotion to check")
+        return
     promoted = sorted(config(i) for i in range(9, 12))
     check(promoted == sorted(config(i) for i in best(range(9), 3)),
           f"hyperband promoted {promoted}, not the best three of its first rung")
+    if len(trials) < 13:
+        log("mnist: hyperband promoted the best 3 of 9 to 3 epochs, then reached its goal")
+        return
     check(config(12) == config(best(range(9, 12), 1)[0]),
           f"hyperband's 9-epoch trial {config(12)} is not the best of its 3-epoch rung")
     log("mnist: hyperband promoted the best 3 of 9 to 3 epochs and the best of those to 9")
@@ -965,7 +1042,7 @@ BO_HOST_HISTORIES = (12, 200)  # trials in the history of a timed BO call
 
 def phase_search(torch) -> None:
     with torch_default_tf32(torch):
-        check_sobol(run_example(torch, "search", "sobol"))
+        check_sobol(run_example(torch, "search", "sobol", max_trials=SOBOL_MAX_TRIALS))
         check_bayesopt(run_example(torch, "search", "bayesian-optimization"))
         check_pbt(run_example(torch, "search", "simple-pbt", trial_metrics=()))
     bayesopt_host_times()
@@ -1144,9 +1221,10 @@ def darts_full_width(torch, card, steps=5) -> None:
     """The search step of the DARTS paper's search network (8 layers, 16
     channels, 4 nodes, the 8 operations) at the reference's batch 128, or
     64 where 128 does not fit: CUDA-event time per step (median of
-    ``steps``), peak memory, and, under the profiler, device operations and
-    busy share over one step (processing the profile of a step of 118 609
-    device operations takes about a minute and a half of host time)."""
+    ``steps``) and peak memory; then, under the profiler, device
+    operations and busy share over one step of the same network cut to
+    DARTS_PROFILE_LAYERS layers (reading back an 8-layer step's profile
+    takes one and a half to two minutes of host time)."""
     import statistics
 
     from torch.autograd import DeviceType
@@ -1158,7 +1236,7 @@ def darts_full_width(torch, card, steps=5) -> None:
             torch.cuda.reset_peak_memory_stats()
             search = _darts_search(torch, "cuda", dict(DARTS_FULL, batch_size=str(batch)), 8)
             search.build(1000)
-            batches = _darts_batches(torch, steps + 2, batch, "cuda")
+            batches = _darts_batches(torch, steps + 1, batch, "cuda")
             search.step(*batches[0])  # first use: cuDNN's algorithm choice
             torch.cuda.synchronize()
             times, walls = [], []
@@ -1182,10 +1260,14 @@ def darts_full_width(torch, card, steps=5) -> None:
         f"{n_weights / 1e6:.2f}M weights, batch {batch}, f32, hessian_mode jvp): {statistics.median(times):.1f} ms/step "
         f"(CUDA events, median of {steps}: {[round(t, 1) for t in times]}; host wall {[round(w, 1) for w in walls]}); "
         f"peak memory {peak:.2f} GiB")
+    del search
+    search = _darts_search(torch, "cuda", dict(DARTS_FULL, batch_size=str(batch)), DARTS_PROFILE_LAYERS)
+    search.build(1000)
+    search.step(*batches[0])  # first use of the cut network's shapes
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for tb, vb in batches[steps + 1:steps + 2]:
-            search.step(tb, vb)
+        search.step(*batches[1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
@@ -1194,9 +1276,9 @@ def darts_full_width(torch, card, steps=5) -> None:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "darts_step_profile.txt"), "w") as f:
         f.write(table)
-    log(f"darts [{card}]: profiler, 1 full-width step: wall {wall_ms:.1f} ms/step (profiled), device busy "
-        f"{device_ms:.1f} ms/step ({100 * device_ms / wall_ms:.1f}% busy), {len(on_device)} device ops/step; "
-        f"top device time:\n{table}")
+    log(f"darts [{card}]: profiler, 1 search step at the same width cut to {DARTS_PROFILE_LAYERS} of 8 layers "
+        f"(the script's time): wall {wall_ms:.1f} ms/step (profiled), device busy {device_ms:.1f} ms/step "
+        f"({100 * device_ms / wall_ms:.1f}% busy), {len(on_device)} device ops/step; top device time:\n{table}")
     del search, batches
     torch.cuda.empty_cache()
 
@@ -1218,7 +1300,7 @@ class _Tee:
 
 def _run_cli(torch, doc, prefix, timeout):
     """``doc`` through the port's CLI on the card: (rc, wall seconds, the
-    experiment's record, what the run printed)."""
+    experiment's record with its root under "root", what the run printed)."""
     import tempfile
 
     from katib_tpu_torch import cli
@@ -1235,7 +1317,9 @@ def _run_cli(torch, doc, prefix, timeout):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with open(os.path.join(root, doc["name"], "experiment.json")) as f:
-        return rc, wall, json.load(f), "".join(tee.lines)
+        record = json.load(f)
+    record["root"] = root
+    return rc, wall, record, "".join(tee.lines)
 
 
 class _StepLog:
@@ -1313,16 +1397,16 @@ def run_darts_search(torch, card) -> dict:
 
 def run_darts_retrain(torch, card, genotype: str) -> None:
     """examples/nas/darts-retrain.json on the searched genotype, cut to 2
-    trials of 2 epochs."""
+    trials of DARTS_RETRAIN_EPOCHS epochs."""
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "nas",
                            "darts-retrain.json")) as f:
         doc = json.load(f)
     next(p for p in doc["parameters"] if p["name"] == "genotype")["feasibleSpace"]["list"] = [genotype]
     doc["maxTrialCount"] = 2  # cut from 8
     doc["parameters"].append({"name": "num_epochs", "parameterType": "categorical",
-                              "feasibleSpace": {"list": ["2"]}})  # cut from the trial's default of 10
+                              "feasibleSpace": {"list": [str(DARTS_RETRAIN_EPOCHS)]}})  # the trial's default: 10
     log(f"darts [{card}]: examples/nas/darts-retrain.json on that genotype, cut: maxTrialCount 8 -> 2, "
-        f"num_epochs 10 -> 2 (a one-value categorical parameter)")
+        f"num_epochs 10 -> {DARTS_RETRAIN_EPOCHS} (a one-value categorical parameter)")
     rc, wall, record, _ = _run_cli(torch, doc, "darts-retrain-", 300)
     status, trials = record["experiment"]["status"], record["trials"]
     log(f"darts [{card}]: retrain: rc {rc}, {status['condition']} ({status['reason']}), "
@@ -1336,7 +1420,7 @@ def run_darts_retrain(torch, card, genotype: str) -> None:
             f"momentum={float(a['momentum']):.3f} wall={t['completionTime'] - t['startTime']:.1f}s {values}")
         check(t["condition"] == "Succeeded", f"retrain trial {t['name']} did not succeed:\n{t.get('message', '')}")
         for metric, vals in values.items():
-            check(len(vals) == 2 and all(math.isfinite(v) for v in vals),
+            check(len(vals) == DARTS_RETRAIN_EPOCHS and all(math.isfinite(v) for v in vals),
                   f"retrain trial {t['name']}: {metric} {vals} is not one finite value per epoch")
 
 
@@ -1624,6 +1708,199 @@ def run_enas_search(torch, card) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: command trials
+# ---------------------------------------------------------------------------
+
+def phase_command(torch) -> None:
+    here = os.getcwd()
+    os.chdir(os.path.dirname(os.path.abspath(__file__)))  # the examples' workingDir "." is the repository
+    try:
+        run_trial_conditions(torch)
+        run_pytorch_subprocess(torch)
+        run_mnist_command(torch)
+    finally:
+        os.chdir(here)
+
+
+def _command_example(path):
+    """The spec at ``path`` (from the repository's root), with this
+    interpreter for a leading ``python`` when ``python`` on PATH is missing
+    or is another interpreter (printed)."""
+    import shutil
+
+    with open(path) as f:
+        doc = json.load(f)
+    command = doc["trialTemplate"]["command"]
+    found = shutil.which("python")
+    if command[0] == "python" and (found is None or os.path.realpath(found) != os.path.realpath(sys.executable)):
+        log(f"command: {path}, in a copy: argv[0] 'python' -> {sys.executable} ('python' on PATH is {found})")
+        command[0] = sys.executable
+    else:
+        log(f"command: {path}: 'python' on PATH is {found}, this interpreter; argv[0] unchanged")
+    return doc
+
+
+def _trial_lines(phase, record, metrics):
+    """Logs each trial; returns {trial name: {metric: [float values]}}."""
+    values = {}
+    for t in record["trials"]:
+        rows = record["logs"][t["name"]]
+        values[t["name"]] = {m: [float(v) for _, metric, v in rows if metric == m] for m in metrics}
+        a = " ".join(f"{p['name']}={p['value']}" for p in t["parameterAssignments"])
+        wall = (t["completionTime"] - t["startTime"]) if t["startTime"] else float("nan")
+        log(f"{phase}:   {t['name']} {t['condition']} ({t['conditions'][-1]['reason']}: {t['message'][:80]!r}) "
+            f"{a} wall={wall:.2f}s {values[t['name']]}")
+    return values
+
+
+def run_trial_conditions(torch) -> None:
+    doc = _command_example(os.path.join("examples", "trial-conditions.json"))
+    rc, wall, record, _ = _run_cli(torch, doc, "command-conditions-", 300)
+    status, trials = record["experiment"]["status"], record["trials"]
+    log(f"command: examples/trial-conditions.json through the port's CLI: rc {rc}, {status['condition']} "
+        f"({status['reason']}), {status['trialsSucceeded']} succeeded, {status['trialsFailed']} failed of "
+        f"{len(trials)}, experiment wall {wall:.1f}s")
+    _trial_lines("command", record, ["score"])
+    diverged = [t for t in trials if float(t["parameterAssignments"][0]["value"]) > 0.3]
+    if len(diverged) >= doc["maxFailedTrialCount"]:
+        check(status["reason"] == "ExperimentMaxFailedTrialsReached", "trial-conditions.json: wrong end")
+    else:
+        check(rc == 0 and status["reason"] == "ExperimentMaxTrialsReached" and len(trials) == doc["maxTrialCount"],
+              "examples/trial-conditions.json did not run its trials to MaxTrialsReached")
+    for t in trials:
+        lr = float(t["parameterAssignments"][0]["value"])
+        if lr > 0.3:
+            check(t["condition"] == "Failed" and t["message"] == "failure condition met: 'LOSS DIVERGED' in stdout",
+                  f"trial {t['name']} (lr {lr}) was not failed by its failure condition: {t['message']}")
+        else:
+            scores = [float(v) for _, m, v in record["logs"][t["name"]] if m == "score"]
+            check(t["condition"] == "Succeeded" and scores == [1 - (lr - 0.05) ** 2],
+                  f"trial {t['name']} (lr {lr}): {t['condition']}, score {scores}, not 1 - (lr - 0.05) ** 2")
+    log(f"command: trial-conditions.json: {len(diverged)} trials above lr 0.3 Failed by the failure condition, "
+        f"{len(trials) - len(diverged)} Succeeded with score 1 - (lr - 0.05) ** 2 exactly")
+
+
+def run_pytorch_subprocess(torch) -> None:
+    doc = _command_example(os.path.join("examples", "pytorch-subprocess.json"))
+    epochs = int(doc["trialTemplate"]["command"][doc["trialTemplate"]["command"].index("--epochs") + 1])
+    rc, wall, record, _ = _run_cli(torch, doc, "command-pytorch-", 600)
+    status, trials = record["experiment"]["status"], record["trials"]
+    ran = [t for t in trials if t["condition"] == "Succeeded"]
+    log(f"command: examples/pytorch-subprocess.json through the port's CLI: rc {rc}, {status['condition']} "
+        f"({status['reason']}), {len(ran)} of {len(trials)} trials ran and succeeded, experiment wall {wall:.1f}s")
+    values = _trial_lines("command", record, ["accuracy", "loss"])
+    check(rc == 0 and ran, "examples/pytorch-subprocess.json did not succeed")
+    for t in ran:
+        check(all(len(v) == epochs and all(math.isfinite(x) for x in v) for v in values[t["name"]].values()),
+              f"trial {t['name']}: {values[t['name']]} is not {epochs} finite values of accuracy and loss")
+        check(not os.path.exists(os.path.join(record["root"], doc["name"], t["name"])),
+              f"retain: false, but Succeeded trial {t['name']}'s directory is still there")
+    best = max(max(values[t["name"]]["accuracy"]) for t in ran)
+    if best >= doc["objective"]["goal"]:
+        check(status["reason"] == "ExperimentGoalReached"
+              and all(t["condition"] == "Killed" for t in trials if t not in ran),
+              "pytorch-subprocess.json reached its goal, but did not end by it")
+    else:
+        check(status["reason"] == "ExperimentMaxTrialsReached" and len(ran) == doc["maxTrialCount"],
+              "pytorch-subprocess.json did not run every trial")
+
+
+def run_mnist_command(torch) -> None:
+    """mnist-command-h100.json through the CLI, then each trial's assignments
+    in-process through the entryPoint path on cuda:0, under the flags the
+    child runs with: the per-epoch metrics must agree bit for bit."""
+    import struct
+
+    from katib_tpu_torch.api.spec import TrialTemplate
+    from katib_tpu_torch.controller.experiment import resolve_entry_point
+    from katib_tpu_torch.db.store import InMemoryObservationStore
+    from katib_tpu_torch.runtime.context import TrialContext
+    from katib_tpu_torch.runtime.metrics import MetricsReporter
+
+    doc = _command_example(os.path.join("katib_tpu_torch", "examples", "mnist-command-h100.json"))
+    rc, wall, record, _ = _run_cli(torch, doc, "command-mnist-", 600)
+    status, trials = record["experiment"]["status"], record["trials"]
+    log(f"command: katib_tpu_torch/examples/mnist-command-h100.json through the port's CLI on the card: rc {rc}, "
+        f"{status['condition']} ({status['reason']}), {status['trialsSucceeded']}/{len(trials)} succeeded, "
+        f"experiment wall {wall:.1f}s")
+    children = _trial_lines("command", record, ["loss", "accuracy"])
+    check(rc == 0 and len(trials) == doc["maxTrialCount"] and all(t["condition"] == "Succeeded" for t in trials),
+          "not every MNIST command trial succeeded")
+    fn = resolve_entry_point(TrialTemplate(entry_point="katib_tpu.models.mnist_cnn:run_mnist_trial"))
+    worst = 0.0
+    for t in trials:
+        assignments = {p["name"]: p["value"] for p in t["parameterAssignments"]}
+        assignments["num_epochs"] = doc["trialTemplate"]["command"][-1]
+        store = InMemoryObservationStore()
+        ctx = TrialContext(trial_name=t["name"], experiment_name="in-process", assignments=assignments,
+                           reporter=MetricsReporter(store, t["name"]), devices=[torch.device("cuda", 0)])
+        with torch_default_tf32(torch), deterministic_cudnn(torch):
+            t0 = time.perf_counter()
+            fn(assignments, ctx)
+            torch.cuda.synchronize()
+            in_process = time.perf_counter() - t0
+        ours = {m: [float(r.value) for r in store.get_observation_log(t["name"], m)] for m in ("loss", "accuracy")}
+        theirs = children[t["name"]]
+        same = all(len(ours[m]) == len(theirs[m]) and all(struct.pack("<d", a) == struct.pack("<d", b)
+                                                          for a, b in zip(ours[m], theirs[m])) for m in ours)
+        diff = max((abs(a - b) for m in ours for a, b in zip(ours[m], theirs[m])), default=float("nan"))
+        worst = max(worst, diff)
+        child_wall = t["completionTime"] - t["startTime"]
+        log(f"command:   {t['name']} child {theirs} | in-process {ours} | bit for bit equal: {same} "
+            f"(largest difference {diff:.3e}); wall: child {child_wall:.2f}s, in-process {in_process:.2f}s, "
+            f"process cost {child_wall - in_process:.2f}s")
+        check(all(len(ours[m]) == len(theirs[m]) == int(assignments["num_epochs"]) for m in ours),
+              f"trial {t['name']}: the child and the in-process trial reported different numbers of epochs")
+        check(same or diff <= MNIST_TOL, f"trial {t['name']}: the child's metrics differ from the in-process "
+              f"trial's by {diff:.3e} > MNIST_TOL {MNIST_TOL}")
+    log(f"command: MNIST command trials against in-process: largest difference {worst:.3e} (MNIST_TOL {MNIST_TOL})")
+    process_cost(torch)
+
+
+_PROCESS_COST = """
+import json, sys, time
+t = [time.time()]
+import torch
+t.append(time.time())
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t.append(time.time())
+from katib_tpu_torch.models import mnist_cnn
+from katib_tpu_torch.utils.datasets import load_mnist, split_on_device
+t.append(time.time())
+x, y = split_on_device(load_mnist, "train", None, torch.device("cuda"))
+split_on_device(load_mnist, "test", None, torch.device("cuda"))
+torch.cuda.synchronize()
+t.append(time.time())
+torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+step = mnist_cnn.make_mnist_train_step(mnist_cnn.MnistCNN().to("cuda"), 0.01, 0.5)
+float(step(x[:64], y[:64]))
+t.append(time.time())
+float(step(x[64:128], y[64:128]))
+t.append(time.time())
+print(json.dumps(t))
+"""
+
+
+def process_cost(torch) -> None:
+    """Where a command trial's process cost goes: one child that does what
+    mnist_trial.py does before its first epoch, each part stamped."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0",
+               PYTHONPATH=os.pathsep.join([os.getcwd(), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-c", _PROCESS_COST], capture_output=True, text=True, env=env,
+                         timeout=300)
+    end = time.time()
+    check(out.returncode == 0, f"the process-cost child failed:\n{out.stderr[-2000:]}")
+    t = json.loads(out.stdout.strip().splitlines()[-1])
+    parts = {"interpreter start": t[0] - t0, "import torch": t[1] - t[0], "CUDA context": t[2] - t[1],
+             "import the port's MNIST trial": t[3] - t[2], "MNIST data made and on the card": t[4] - t[3],
+             "first step (cuDNN, kernels)": t[5] - t[4], "second step": t[6] - t[5], "exit": end - t[6]}
+    log(f"command: a command trial's process cost, one child on cuda:0: {end - t0:.2f}s in all; "
+        + ", ".join(f"{k} {v:.2f}s" for k, v in parts.items()))
+
+
+# ---------------------------------------------------------------------------
 
 def device_line() -> str:
     try:
@@ -1665,7 +1942,7 @@ def main(argv=None) -> int:
               "e2e": lambda: phase_e2e(torch, record, args.seed), "times": lambda: phase_times(torch, record),
               "mnist": lambda: phase_mnist(torch), "suggest": lambda: phase_suggest(torch),
               "search": lambda: phase_search(torch), "darts": lambda: phase_darts(torch),
-              "enas": lambda: phase_enas(torch)}
+              "enas": lambda: phase_enas(torch), "command": lambda: phase_command(torch)}
     try:
         for phase, run in phases.items():
             t0 = time.perf_counter()
@@ -1674,10 +1951,13 @@ def main(argv=None) -> int:
             log(f"phase {phase}: done in {time.perf_counter() - t0:.1f}s")
         import pkgutil
 
-        for module in pkgutil.walk_packages(katib_tpu_torch.__path__, "katib_tpu_torch."):
-            __import__(module.name)
+        walked = [module.name for module in pkgutil.walk_packages(katib_tpu_torch.__path__, "katib_tpu_torch.")]
+        for name in walked:
+            __import__(name)
+        check(set(COMMAND_MODULES) <= set(walked), f"the import scan missed {set(COMMAND_MODULES) - set(walked)}")
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in JAX_MODULES)
-        log(f"imports: every module of the port imported; modules of JAX or of the JAX package loaded: "
+        log(f"imports: every module of the port imported ({len(walked)}, the command-trial modules among them); "
+            f"modules of JAX or of the JAX package loaded: "
             f"{leaked or 'none'}")
         check(not leaked, f"the port imported {leaked}")
     except Exception as e:

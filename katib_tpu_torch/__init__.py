@@ -1,10 +1,14 @@
 """katib_tpu_torch — the PyTorch/CUDA port of katib_tpu.
 
-One HPO experiment runs in-process: a JSON spec goes to
-``controller.experiment.ExperimentController``, a NumPy suggester (TPE,
-random) proposes assignments, and each trial trains on a CUDA device through
-hand-written Hopper kernels (``ops/csrc``). The package imports torch, numpy
-and the standard library only; it shares no code with ``katib_tpu``.
+An experiment runs in-process: a JSON spec goes to
+``controller.experiment.ExperimentController``, a suggester proposes
+assignments, and each trial either trains on a CUDA device through
+hand-written Hopper kernels (``ops/csrc``) or runs as a command in a
+subprocess of its own, its metrics read by a collector. The package imports
+torch, numpy and the standard library only; it shares no code with
+``katib_tpu``.
 """
+
+from .runtime.metrics import report_metrics  # noqa: F401  (Katib's SDK push call)
 
 __version__ = "0.1.0"

@@ -1,5 +1,8 @@
 """Experiment specification types — the port's own copy of
-``katib_tpu/api/spec.py``, cut to what one in-process HPO experiment uses.
+``katib_tpu/api/spec.py``, cut to what the port's experiments use: in-process
+trials (an entry point or a function) and command trials (an argv template
+run as a subprocess), with their metrics collector and their success and
+failure conditions.
 
 JSON field names and their meaning are the JAX package's (and Katib's), so a
 spec file runs under either package: a ``katib_tpu.`` entry point runs the
@@ -7,9 +10,7 @@ port's counterpart of that trial where the port has one
 (``controller/experiment.py:PORTED_TRIALS``). A section the port does not
 carry yet raises ``ValidationError`` naming it, as does any other key it
 does not know (keys that start with ``_``, such as ``_comment``, are
-ignored): a metrics collector other than the default push collector, a
-resume policy other than ``Never``, fair-share fields, and command
-templates.
+ignored): a resume policy other than ``Never`` and fair-share fields.
 """
 
 from __future__ import annotations
@@ -49,6 +50,18 @@ class ComparisonType(str, enum.Enum):
     EQUAL = "equal"
     LESS = "less"
     GREATER = "greater"
+
+
+class CollectorKind(str, enum.Enum):
+    """Katib's collector kinds (common_types.go), and push reporting."""
+
+    STDOUT = "StdOut"
+    FILE = "File"
+    TF_EVENT = "TfEvent"
+    PROMETHEUS = "PrometheusMetric"
+    CUSTOM = "Custom"
+    NONE = "None"
+    PUSH = "Push"  # the trial calls ctx.report / report_metrics (runtime/metrics.py)
 
 
 class ParameterType(str, enum.Enum):
@@ -273,29 +286,157 @@ class TrialResources:
 
 
 @dataclass
-class TrialTemplate:
-    """An in-process trial: ``entry_point`` "module:function", or a Python
-    ``function`` (not serialisable), called as fn(assignments, ctx)."""
+class FilterSpec:
+    """The TEXT collector's metric regexes, each with two groups (name, value)."""
 
-    entry_point: Optional[str] = None
-    function: Optional[Callable[..., Any]] = None
-    resources: TrialResources = field(default_factory=TrialResources)
-    retain: bool = False
+    metrics_format: List[str] = field(default_factory=list)
 
     def to_dict(self) -> Dict[str, Any]:
-        d: Dict[str, Any] = {"trialParameters": [], "resources": self.resources.to_dict(), "retain": self.retain}
+        return {"metricsFormat": list(self.metrics_format)}
+
+
+@dataclass
+class SourceSpec:
+    """Where a collector reads: a file (TEXT or JSON lines, or a TF event
+    directory) with its filter, or the Prometheus endpoint the executor
+    scrapes while the trial runs."""
+
+    file_path: Optional[str] = None
+    file_format: str = "TEXT"  # TEXT | JSON
+    filter: Optional[FilterSpec] = None
+    http_host: str = "127.0.0.1"
+    http_port: int = 8080
+    http_path: str = "/metrics"
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"fileFormat": self.file_format}
+        if self.file_path:
+            d["filePath"] = self.file_path
+        if self.filter:
+            d["filter"] = self.filter.to_dict()
+        if (self.http_host, self.http_port, self.http_path) != ("127.0.0.1", 8080, "/metrics"):
+            d["httpGet"] = {"host": self.http_host, "port": self.http_port, "path": self.http_path}
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SourceSpec":
+        filt = d.get("filter")
+        http = d.get("httpGet") or {}
+        return cls(
+            file_path=d.get("filePath"),
+            file_format=d.get("fileFormat", "TEXT"),
+            filter=FilterSpec(metrics_format=list(filt.get("metricsFormat", []))) if filt else None,
+            http_host=http.get("host", "127.0.0.1"),
+            http_port=int(http.get("port", 8080)),
+            http_path=http.get("path", "/metrics"),
+        )
+
+
+@dataclass
+class MetricsCollectorSpec:
+    """The collector of a trial's metrics. ``custom_command`` is a Custom
+    collector's program: it runs after the trial exits, with ``KATIB_TRIAL_*``
+    variables naming the trial's directory, and its stdout is parsed as a
+    File collector's lines."""
+
+    collector_kind: CollectorKind = CollectorKind.PUSH
+    source: Optional[SourceSpec] = None
+    custom_command: Optional[List[str]] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"collector": {"kind": self.collector_kind.value}}
+        if self.custom_command:
+            d["collector"]["customCollector"] = {"command": list(self.custom_command)}
+        if self.source:
+            d["source"] = self.source.to_dict()
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "MetricsCollectorSpec":
+        collector = d.get("collector", {})
+        custom = collector.get("customCollector") or {}
+        cmd = custom.get("command")
+        if cmd is not None and not isinstance(cmd, (list, tuple)):
+            raise ValueError(f"customCollector.command must be a list of strings, got {type(cmd).__name__}")
+        return cls(
+            collector_kind=CollectorKind(collector.get("kind", "Push")),
+            source=SourceSpec.from_dict(d["source"]) if d.get("source") else None,
+            custom_command=list(cmd) if cmd else None,
+        )
+
+
+@dataclass
+class TrialParameterSpec:
+    """A command template's placeholder ``${trialParameters.<name>}`` and the
+    search-space parameter (or ``${trialSpec.*}`` key) it stands for."""
+
+    name: str
+    description: str = ""
+    reference: str = ""
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "description": self.description, "reference": self.reference}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TrialParameterSpec":
+        return cls(name=d["name"], description=d.get("description", ""), reference=d.get("reference", ""))
+
+
+@dataclass
+class TrialTemplate:
+    """Exactly one of: ``command``, an argv template run as a subprocess
+    (``${trialParameters.x}`` substituted, controller/executor.py);
+    ``entry_point`` "module:function", or a Python ``function`` (not
+    serialisable), called in-process as fn(assignments, ctx).
+
+    ``success_condition`` and ``failure_condition`` classify a finished trial
+    (controller/conditions.py). Without ``retain`` a Succeeded or
+    EarlyStopped trial's directory is removed; a Failed or Killed trial's is
+    kept."""
+
+    command: Optional[List[str]] = None
+    entry_point: Optional[str] = None
+    function: Optional[Callable[..., Any]] = None
+    trial_parameters: List[TrialParameterSpec] = field(default_factory=list)
+    resources: TrialResources = field(default_factory=TrialResources)
+    retain: bool = False
+    success_condition: str = ""
+    failure_condition: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
+    working_dir: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "trialParameters": [p.to_dict() for p in self.trial_parameters],
+            "resources": self.resources.to_dict(),
+            "retain": self.retain,
+        }
+        if self.command is not None:
+            d["command"] = list(self.command)
         if self.entry_point is not None:
             d["entryPoint"] = self.entry_point
+        if self.env:
+            d["env"] = dict(self.env)
+        if self.working_dir:
+            d["workingDir"] = self.working_dir
+        if self.success_condition:
+            d["successCondition"] = self.success_condition
+        if self.failure_condition:
+            d["failureCondition"] = self.failure_condition
         return d
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "TrialTemplate":
-        if d.get("command") is not None:
-            raise ValidationError("command trial templates are not part of the port yet; use entryPoint")
         return cls(
+            command=d.get("command"),
             entry_point=d.get("entryPoint"),
+            trial_parameters=[TrialParameterSpec.from_dict(p) for p in d.get("trialParameters", [])],
             resources=TrialResources.from_dict(d.get("resources", {})),
             retain=bool(d.get("retain", False)),
+            env=dict(d.get("env", {})),
+            working_dir=d.get("workingDir"),
+            success_condition=d.get("successCondition", ""),
+            failure_condition=d.get("failureCondition", ""),
         )
 
 
@@ -377,6 +518,7 @@ class ExperimentSpec:
     max_trial_count: Optional[int] = None
     max_failed_trial_count: Optional[int] = None
     early_stopping: Optional[EarlyStoppingSpec] = None
+    metrics_collector_spec: MetricsCollectorSpec = field(default_factory=MetricsCollectorSpec)
     nas_config: Optional[NasConfig] = None
     # a trial whose assignments equal a Succeeded trial's takes its result
     # instead of running (controller/experiment.py)
@@ -389,6 +531,7 @@ class ExperimentSpec:
             "objective": self.objective.to_dict(),
             "algorithm": self.algorithm.to_dict(),
             "trialTemplate": self.trial_template.to_dict(),
+            "metricsCollectorSpec": self.metrics_collector_spec.to_dict(),
         }
         if self.early_stopping is not None:
             d["earlyStopping"] = self.early_stopping.to_dict()
@@ -417,6 +560,7 @@ class ExperimentSpec:
             parallel_trial_count=d.get("parallelTrialCount"),
             max_trial_count=d.get("maxTrialCount"),
             max_failed_trial_count=d.get("maxFailedTrialCount"),
+            metrics_collector_spec=MetricsCollectorSpec.from_dict(d.get("metricsCollectorSpec") or {}),
             early_stopping=EarlyStoppingSpec.from_dict(d["earlyStopping"]) if d.get("earlyStopping") else None,
             nas_config=NasConfig.from_dict(d["nasConfig"]) if d.get("nasConfig") else None,
             reuse_duplicate_results=bool(d.get("reuseDuplicateResults", False)),
@@ -430,26 +574,16 @@ class ExperimentSpec:
 _CARRIED_KEYS = frozenset({
     "name", "parameters", "objective", "algorithm", "trialTemplate", "parallelTrialCount",
     "maxTrialCount", "maxFailedTrialCount", "earlyStopping", "nasConfig", "reuseDuplicateResults",
+    "metricsCollectorSpec",
 })
-
-
-def _default_collector(mc: Any) -> bool:
-    """The JAX package's default collector: push reporting, as its
-    ``MetricsCollectorSpec().to_dict()`` writes it, or the section left out."""
-    if not mc:
-        return True
-    collector = mc.get("collector") or {} if isinstance(mc, dict) else None
-    return (isinstance(collector, dict) and set(mc) <= {"collector"} and set(collector) <= {"kind"}
-            and collector.get("kind", "Push") == "Push")
 
 
 def refuse_sections_not_carried(d: Dict[str, Any]) -> None:
     """Raise ValidationError naming the first top-level section of a spec
     document that the port would otherwise drop. The values that the JAX
-    package writes by default (push collector, ``resumePolicy: Never``,
-    ``fairShareWeight: 1``, no priority class) are accepted."""
+    package writes by default (``resumePolicy: Never``, ``fairShareWeight:
+    1``, no priority class) are accepted."""
     refused = {
-        "metricsCollectorSpec": lambda v: not _default_collector(v),
         "resumePolicy": lambda v: v not in (None, "Never"),
         "priorityClass": bool,
         "fairShareWeight": lambda v: float(v) != 1.0,

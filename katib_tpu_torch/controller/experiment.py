@@ -1,15 +1,18 @@
-"""In-process experiment controller — a slim counterpart of
+"""Experiment controller — a slim counterpart of
 ``katib_tpu/controller/experiment.py``, ``scheduler.py``, ``status.py`` and
 the in-process half of ``executor.py``.
 
 ``run`` drives one experiment to a terminal condition: it asks the suggester
 for up to ``parallelTrialCount`` assignments at a time, gives each trial
-``numDevices`` device slots from the controller's pool, runs the trial
-function on a thread of its own, folds the reported metrics, and picks the
-optimal trial, with Katib's terminal conditions (goal, max failed, max
-trials, suggestion end). The device pool is the process's CUDA devices
-unless the caller passes ``devices`` (``[torch.device("cpu")]`` for the
-CPU).
+``numDevices`` device slots from the controller's pool, runs the trial on a
+thread of its own (the trial function in-process, or a command template as
+a subprocess, ``controller/executor.py``, in ``<root>/<experiment>/<trial>``),
+folds the reported metrics, applies the trial's success and failure
+conditions, and picks the optimal trial, with Katib's terminal conditions
+(goal, max failed, max trials, suggestion end). Without ``retain`` a
+Succeeded or EarlyStopped command trial's directory is removed; a Failed or
+Killed one's is kept. The device pool is the process's CUDA devices unless
+the caller passes ``devices`` (``[torch.device("cpu")]`` for the CPU).
 
 A suggester that answers ``TrialsNotCompleted`` (Hyperband between rungs)
 is asked again once a trial has ended; the settings a reply hands back are
@@ -30,11 +33,13 @@ slices of the port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
 import os
 import shutil
+import tempfile
 import threading
 import time
 import traceback
@@ -42,10 +47,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from ..api.defaults import set_defaults
 from ..api.spec import (
     UNAVAILABLE_METRIC_VALUE,
     AlgorithmSetting,
     AlgorithmSpec,
+    CollectorKind,
     ExperimentSpec,
     MetricStrategyType,
     ObjectiveType,
@@ -64,11 +71,12 @@ from ..api.validation import validate_experiment
 from ..db.store import InMemoryObservationStore
 from ..earlystop.medianstop import create_early_stopper
 from ..runtime.context import TrialContext
-from ..runtime.metrics import EarlyStopped, EarlyStoppingMonitor, MetricsReporter, TrialKilled
+from ..runtime.metrics import EarlyStopped, EarlyStoppingMonitor, MetricsReporter, TrialKilled, current_reporter
 from ..suggest import base as suggest_base
+from ..suggest.nas.enas import STATE_FILE as ENAS_STATE_FILE
+from .executor import ExecutionResult, SubprocessExecutor, TrialOutcome, apply_conditions
 from .suggestion import suggestion_request_plan
 
-DEFAULT_PARALLEL_TRIAL_COUNT = 3  # Katib's default
 LINEAGE_LABEL = "checkpoint-lineage"  # a trial trained from a parent's checkpoint (PBT)
 JAX_PACKAGE = "katib_tpu"
 PORT_PACKAGE = "katib_tpu_torch"
@@ -117,10 +125,11 @@ def validate_spec(spec: ExperimentSpec, n_devices: int) -> None:
     port's own: the entry point, the algorithm and its settings, hosts and
     devices."""
     validate_experiment(spec)
-    try:
-        resolve_entry_point(spec.trial_template)
-    except (ImportError, AttributeError) as e:
-        raise ValidationError(f"entryPoint {spec.trial_template.entry_point!r} does not resolve: {e}") from e
+    if spec.trial_template.command is None:
+        try:
+            resolve_entry_point(spec.trial_template)
+        except (ImportError, AttributeError) as e:
+            raise ValidationError(f"entryPoint {spec.trial_template.entry_point!r} does not resolve: {e}") from e
     algo = spec.algorithm.algorithm_name
     if algo not in suggest_base.registered_algorithms():
         raise ValidationError(
@@ -131,7 +140,7 @@ def validate_spec(spec: ExperimentSpec, n_devices: int) -> None:
         raise ValidationError("multi-host trials are a later slice of the port")
     if not 1 <= res.num_devices <= n_devices:
         raise ValidationError(f"numDevices={res.num_devices} but the controller holds {n_devices} device(s)")
-    if spec.trial_template.function is None and res.num_devices > 1:
+    if spec.trial_template.entry_point is not None and res.num_devices > 1:
         trial = port_entry_point(spec.trial_template.entry_point)
         if trial.startswith(PORT_PACKAGE + ".") and trial[len(PORT_PACKAGE) + 1:] in PORTED_TRIALS:
             raise ValidationError(
@@ -260,23 +269,27 @@ class ExperimentController:
         self._running: Dict[str, tuple] = {}  # trial name -> (thread, kill event, slots)
         self._stoppers: Dict[str, Any] = {}  # experiment name -> its early stopper
         self._suggesters: Dict[str, suggest_base.Suggester] = {}  # experiment name -> its run's suggester
+        self._subprocess = SubprocessExecutor(self.obs_store)
 
     # -- experiments ----------------------------------------------------------
 
     def create_experiment(self, spec: ExperimentSpec) -> Experiment:
         if spec.name in self._experiments:
             raise ValidationError(f"experiment {spec.name!r} already exists")
-        if spec.parallel_trial_count is None:  # defaulted before admission, as Katib does
-            spec.parallel_trial_count = DEFAULT_PARALLEL_TRIAL_COUNT
+        set_defaults(spec)  # before admission, as Katib does
         validate_spec(spec, len(self.devices))
         exp = Experiment(spec=spec)
         exp.status.set_condition(ExperimentCondition.CREATED, message="Experiment is created")
         self._experiments[spec.name] = exp
         self._trials[spec.name] = {}
         if self.root_dir:
-            # the port does not resume an experiment: a PBT lineage left on
-            # this root by an earlier run of the same name is stale
+            # the port does not resume an experiment: a PBT lineage or an
+            # ENAS controller state left on this root by an earlier run of
+            # the same name is stale
             shutil.rmtree(self._pbt_root(spec.name), ignore_errors=True)
+            for stale in (ENAS_STATE_FILE, ENAS_STATE_FILE + ".tmp"):
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(os.path.join(self.root_dir, spec.name, stale))
         if spec.early_stopping is not None:
             self._stoppers[spec.name] = create_early_stopper(spec.early_stopping.algorithm_name)
         return exp
@@ -413,35 +426,78 @@ class ExperimentController:
 
     def _run_trial(self, exp: Experiment, trial: Trial, slots: List[Any], kill: threading.Event,
                    rules: Sequence[Any] = ()) -> None:
-        obj = exp.spec.objective
+        obj, template = exp.spec.objective, exp.spec.trial_template
+        workdir = None
+        if template.command is not None:
+            workdir = (os.path.join(self.root_dir, exp.name, trial.name) if self.root_dir
+                       else tempfile.mkdtemp(prefix=f"{trial.name}-"))
         monitor = EarlyStoppingMonitor(rules, obj.objective_metric_name, obj.type) if rules else None
         ctx = TrialContext(
             trial_name=trial.name, experiment_name=exp.name, assignments=trial.assignments_dict(),
             reporter=MetricsReporter(self.obs_store, trial.name, kill_event=kill, monitor=monitor),
-            devices=slots, checkpoint_dir=self._suggesters[exp.name].checkpoint_dir(trial.name),
+            devices=slots, checkpoint_dir=self._suggesters[exp.name].checkpoint_dir(trial.name), workdir=workdir,
         )
-        outcome, message = TrialCondition.SUCCEEDED, ""
         try:
-            result = resolve_entry_point(exp.spec.trial_template)(ctx.assignments, ctx)
+            if template.command is not None:
+                result = self._subprocess.execute(exp, trial, ctx, kill, rules)
+            else:
+                result = self._run_in_process(exp, ctx)
+        except Exception:  # e.g. a program that cannot be started: this trial fails, not the controller
+            result = ExecutionResult(TrialOutcome.FAILED, traceback.format_exc(limit=5))
+        # fold, then the trial's own conditions (the JAX scheduler's _classify)
+        observation = self.obs_store.folded(trial.name, obj.all_metric_names())
+        result = apply_conditions(template, result, observation)
+        with self._cv:
+            trial.observation = observation
+            self._finalize(exp, trial, result)
+        if (workdir and not template.retain
+                and trial.condition in (TrialCondition.SUCCEEDED, TrialCondition.EARLY_STOPPED)):
+            # Katib deletes a finished trial's job unless retain; a Failed or
+            # Killed trial's directory stays for its post-mortem. The trial
+            # counts as running until it is gone: _stop_trials joins it.
+            shutil.rmtree(workdir, ignore_errors=True)
+        with self._cv:
+            self._free.extend(slots)
+            self._running.pop(trial.name, None)
+            self._cv.notify_all()
+
+    @staticmethod
+    def _run_in_process(exp: Experiment, ctx: TrialContext) -> ExecutionResult:
+        """The trial function on this thread, with ``report_metrics`` bound to
+        the trial's reporter."""
+        try:
+            with current_reporter(ctx.reporter):
+                result = resolve_entry_point(exp.spec.trial_template)(ctx.assignments, ctx)
             if isinstance(result, dict):  # a returned dict of numbers is reported
                 numeric = {k: v for k, v in result.items() if isinstance(v, (int, float))}
                 if numeric:
                     ctx.report(**numeric)
+            return ExecutionResult(TrialOutcome.COMPLETED, exit_code=0)
         except EarlyStopped:
-            outcome = TrialCondition.EARLY_STOPPED
+            return ExecutionResult(TrialOutcome.EARLY_STOPPED)
         except TrialKilled:
-            outcome, message = TrialCondition.KILLED, "kill requested"
+            return ExecutionResult(TrialOutcome.KILLED, "kill requested")
         except Exception:
-            outcome, message = TrialCondition.FAILED, traceback.format_exc(limit=10)
-        observation = self.obs_store.folded(trial.name, exp.spec.objective.all_metric_names())
-        with self._cv:
-            trial.observation = observation
-            if outcome == TrialCondition.SUCCEEDED and objective_value_str(exp, trial) == UNAVAILABLE_METRIC_VALUE:
-                outcome, message = TrialCondition.METRICS_UNAVAILABLE, "objective metric was never reported"
-            trial.set_condition(outcome, message=message or f"trial {outcome.value.lower()}")
-            self._free.extend(slots)
-            self._running.pop(trial.name, None)
-            self._cv.notify_all()
+            return ExecutionResult(TrialOutcome.FAILED, traceback.format_exc(limit=10), exit_code=1)
+
+    @staticmethod
+    def _finalize(exp: Experiment, trial: Trial, result: ExecutionResult) -> None:
+        """The trial's terminal condition from its classified result, as the
+        JAX scheduler's _finalize sets it (Katib's trial_controller_util.go):
+        a trial that completed without its objective metric is
+        MetricsUnavailable, unless its collector is None."""
+        objective = trial.observation.metric(exp.spec.objective.objective_metric_name) if trial.observation else None
+        metrics_available = objective is not None and objective.latest != UNAVAILABLE_METRIC_VALUE
+        if result.outcome == TrialOutcome.EARLY_STOPPED:
+            trial.set_condition(TrialCondition.EARLY_STOPPED, "TrialEarlyStopped", "Trial is early stopped")
+        elif result.outcome == TrialOutcome.KILLED:
+            trial.set_condition(TrialCondition.KILLED, "TrialKilled", result.message)
+        elif result.outcome == TrialOutcome.FAILED:
+            trial.set_condition(TrialCondition.FAILED, "TrialFailed", result.message)
+        elif not metrics_available and exp.spec.metrics_collector_spec.collector_kind != CollectorKind.NONE:
+            trial.set_condition(TrialCondition.METRICS_UNAVAILABLE, "MetricsUnavailable", "Metrics are not available")
+        else:
+            trial.set_condition(TrialCondition.SUCCEEDED, "TrialSucceeded", "Trial has succeeded")
 
     def _stop_trials(self, name: str) -> None:
         """Kill what still runs (a report is the kill point) and wait for it."""

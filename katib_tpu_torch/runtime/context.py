@@ -1,7 +1,8 @@
 """What a trial function receives — the port's own copy of
 ``katib_tpu/runtime/context.py``, with ``torch_devices()`` in place of
 ``jax_devices()`` and ``mesh()``. ``checkpoint_dir`` is the trial's PBT
-lineage directory (None for other algorithms)."""
+lineage directory (None for other algorithms); ``workdir`` a command
+trial's directory, where its ``stdout.log`` is written."""
 
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ class TrialContext:
     reporter: MetricsReporter
     devices: Optional[List[Any]] = None  # the device slots allocated to this trial
     checkpoint_dir: Optional[str] = None
+    workdir: Optional[str] = None
 
     def report(self, **metrics: float) -> None:
         """Push metrics to the observation store; raises TrialKilled when

@@ -1,8 +1,11 @@
-"""Push metric reporting and early-stopping enforcement — the port's own
-copy of the reporter half of ``katib_tpu/runtime/metrics.py``. Trial code
-calls ``ctx.report(loss=...)``; the rows land in the observation store
-before a kill request or a tripped early-stopping rule unwinds the trial.
-The stdout/file collectors are a later slice.
+"""Metric reporting, collection and early-stopping enforcement — the port's
+own copy of ``katib_tpu/runtime/metrics.py``. In-process trial code calls
+``ctx.report(loss=...)`` (or ``report_metrics``); the rows land in the
+observation store before a kill request or a tripped early-stopping rule
+unwinds the trial. A command trial prints ``name=value`` lines, or writes
+them to a file, and the collectors' parsers here turn them into rows:
+TEXT lines under regex filters (Katib's file-metricscollector and its
+default filter, const.go), JSON lines and Prometheus text.
 
 Rule enforcement follows Katib's metrics-collector sidecar
 (``updateStopRules``): each rule is dropped once it trips and the trial
@@ -14,12 +17,23 @@ its metric, and never after.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import json
+import re
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 from ..api.spec import ComparisonType, EarlyStoppingRule, ObjectiveType
 from ..db.store import InMemoryObservationStore, MetricLog
+
+# Katib's default TEXT filter (const.go): name = value
+DEFAULT_FILTER = r"([\w|-]+)\s*=\s*([+-]?\d*(\.\d+)?([Ee][+-]?\d+)?)"
+# what the executor tells a command trial: its name, and its metrics file
+# under a File collector
+ENV_TRIAL_NAME = "KATIB_TPU_TRIAL_NAME"
+ENV_METRICS_FILE = "KATIB_TPU_METRICS_FILE"
 
 
 class EarlyStopped(Exception):
@@ -106,3 +120,108 @@ class MetricsReporter:
                     self._stopped = True
         if self._stopped:
             raise EarlyStopped(f"trial {self.trial_name} early stopped")
+
+
+# -- report_metrics ----------------------------------------------------------
+
+_current_reporter: contextvars.ContextVar[Optional[MetricsReporter]] = contextvars.ContextVar(
+    "katib_tpu_torch_reporter", default=None)
+
+
+@contextlib.contextmanager
+def current_reporter(reporter: MetricsReporter) -> Iterator[None]:
+    """``reporter`` bound to the in-process trial that runs in the block
+    (the controller binds it around the trial function)."""
+    token = _current_reporter.set(reporter)
+    try:
+        yield
+    finally:
+        _current_reporter.reset(token)
+
+
+def report_metrics(metrics: Optional[Dict[str, float]] = None, **kw: float) -> None:
+    """Report metrics from trial code, as Katib's SDK ``report_metrics``.
+    Inside an in-process trial the rows go to its reporter; in a command
+    trial each value is printed as a ``name=value`` line for the StdOut
+    collector. The JAX package's other bindings (framed ingest, RPC,
+    SQLite) need stores the port does not have yet."""
+    merged = dict(metrics or {})
+    merged.update(kw)
+    reporter = _current_reporter.get()
+    if reporter is not None:
+        reporter.report(**merged)
+        return
+    for k, v in merged.items():
+        # normalised, so that the TEXT collector's numeric filter matches
+        print(f"{k}={validate_metric_value(k, v)}", flush=True)
+
+
+# -- the collectors' parsers ---------------------------------------------------
+
+def parse_text_lines(lines: Sequence[str], metric_names: Sequence[str], filters: Optional[Sequence[str]] = None,
+                     base_time: Optional[float] = None) -> List[MetricLog]:
+    """TEXT collector: regex filters with two groups (name, value); only the
+    wanted names are kept. Line i is stamped ``base_time + i * 1e-6``, so
+    ``latest`` follows the order of the lines."""
+    regs = [re.compile(f) for f in (filters or [DEFAULT_FILTER])]
+    wanted = set(metric_names)
+    t0 = base_time if base_time is not None else time.time()
+    out: List[MetricLog] = []
+    for i, line in enumerate(lines):
+        for reg in regs:
+            for m in reg.finditer(line):
+                name = m.group(1).strip()
+                value = (m.group(2) or "").strip()
+                if name not in wanted or value == "":
+                    continue
+                out.append(MetricLog(timestamp=t0 + i * 1e-6, metric_name=name, value=value))
+    return out
+
+
+_PROM_LINE_RE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{[^}]*\})?\s+([-+0-9.eEnaifNI]+)(?:\s+\d+)?$")
+
+
+def parse_prometheus_text(text: str, metric_names: Sequence[str],
+                          base_time: Optional[float] = None) -> List[MetricLog]:
+    """Prometheus text exposition: the samples of the wanted names, all
+    stamped ``base_time`` (one scrape)."""
+    wanted = set(metric_names)
+    t0 = base_time if base_time is not None else time.time()
+    out: List[MetricLog] = []
+    for line in text.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        m = _PROM_LINE_RE.match(line)
+        if m is None or m.group(1) not in wanted:
+            continue
+        out.append(MetricLog(timestamp=t0, metric_name=m.group(1), value=m.group(2)))
+    return out
+
+
+def parse_json_lines(lines: Sequence[str], metric_names: Sequence[str],
+                     base_time: Optional[float] = None) -> List[MetricLog]:
+    """JSON collector: one object per line, values strings or numbers, a
+    ``timestamp`` key overriding the line's stamp; lines that do not parse
+    are skipped (a trial's output is noisy)."""
+    wanted = set(metric_names)
+    t0 = base_time if base_time is not None else time.time()
+    out: List[MetricLog] = []
+    for i, line in enumerate(lines):
+        line = line.strip()
+        if not line.startswith("{"):
+            continue
+        try:
+            obj = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        ts = t0 + i * 1e-6
+        if "timestamp" in obj:
+            try:
+                ts = float(obj["timestamp"])
+            except (TypeError, ValueError):
+                pass
+        for k, v in obj.items():
+            if k in wanted:
+                out.append(MetricLog(timestamp=ts, metric_name=k, value=str(v)))
+    return out

@@ -142,13 +142,23 @@ def test_spec_round_trip_matches_the_jax_package():
 
 
 def test_command_templates_are_refused():
-    with pytest.raises(ValueError, match="entryPoint"):
-        spec.TrialTemplate.from_dict({"command": ["python", "train.py"]})
+    """The port runs command templates (controller/executor.py), so one is
+    carried as written; admission refuses a template that has both a
+    command and an entryPoint, with the JAX package's message."""
+    template = {"command": ["python", "train.py"], "workingDir": ".", "env": {"A": "1"}}
+    assert spec.TrialTemplate.from_dict(template).to_dict() == jax_spec.TrialTemplate.from_dict(template).to_dict()
+    doc = _small_doc()
+    doc["trialTemplate"]["command"] = ["python", "train.py"]
+    with pytest.raises(jax_validation.ValidationError) as theirs:
+        jax_validation.validate_experiment(jax_spec.ExperimentSpec.from_dict(doc))
+    with pytest.raises(spec.ValidationError, match="entryPoint") as ours:
+        ExperimentController(devices=CPU).create_experiment(spec.ExperimentSpec.from_dict(doc))
+    assert ours.value.errors == theirs.value.errors
 
 
 @pytest.mark.parametrize("section,value", [
     ("reuseDuplicateResults", True),
-    ("metricsCollectorSpec", {"collector": {"kind": "StdOut"}}),
+    ("metricsCollectorSpec", {"collector": {"kind": "Custom"}}),
     ("resumePolicy", "LongRunning"),
     ("priorityClass", "high"),
     ("fairShareWeight", 2.0),
@@ -156,6 +166,15 @@ def test_command_templates_are_refused():
 ])
 def test_sections_the_port_does_not_carry_are_refused(section, value):
     doc = dict(_small_doc(), **{section: value})
+    if section == "metricsCollectorSpec":
+        # carried since the port runs command trials: a Custom collector
+        # without its program is refused at admission, with the JAX package's message
+        message = "collector kind Custom requires customCollector.command"
+        with pytest.raises(jax_validation.ValidationError, match=message):
+            jax_validation.validate_experiment(jax_spec.ExperimentSpec.from_dict(doc))
+        with pytest.raises(spec.ValidationError, match=message):
+            ExperimentController(devices=CPU).create_experiment(spec.ExperimentSpec.from_dict(doc))
+        return
     if section == "reuseDuplicateResults":
         # carried: refused at admission only without a trial budget, with the JAX package's message
         del doc["maxTrialCount"]

@@ -422,8 +422,6 @@ _FRESH_INTERPRETER = textwrap.dedent(
     for path in sorted(glob.glob("examples/*.json") + glob.glob("examples/nas/*.json")):
         with open(path) as f:
             doc = json.load(f)
-        if not doc.get("trialTemplate", {}).get("entryPoint"):
-            continue
         try:
             validate_spec(ExperimentSpec.from_dict(doc), 4)  # a host of four cards
             validated[path] = "valid"
@@ -512,18 +510,20 @@ def test_the_port_imports_nothing_of_jax():
 
 
 def test_examples_validate_or_are_refused_without_importing_jax(fresh_interpreter, port_run):
-    """Every example with an entryPoint either validates through the port
-    (a katib_tpu. trial that is ported runs its counterpart) or raises
-    ValidationError; neither jax, any katib_tpu module nor scipy was imported by
-    validation or by importing every module of the port, in a fresh
-    interpreter, nor newly by the shrunk examples' runs here."""
+    """Every JSON example either validates through the port (a katib_tpu.
+    trial that is ported runs its counterpart; a command template runs as a
+    subprocess) or raises ValidationError; neither jax, any katib_tpu module
+    nor scipy was imported by validation or by importing every module of
+    the port, in a fresh interpreter, nor newly by the shrunk examples' runs
+    here."""
     result = fresh_interpreter()
     validated = result["validated"]
-    assert len(validated) == 17
+    assert len(validated) == 19
     valid = sorted(Path(p).stem for p, outcome in validated.items() if outcome == "valid")
     assert valid == ["bayesian-optimization", "cma-es", "cma-es-ipop", "darts", "darts-retrain",
-                     "early-stopping-medianstop", "enas", "grid", "hyperband", "multivariate-tpe", "random",
-                     "reuse-duplicate-results", "simple-pbt", "sobol", "tpe"]
+                     "early-stopping-medianstop", "enas", "grid", "hyperband", "multivariate-tpe",
+                     "pytorch-subprocess", "random", "reuse-duplicate-results", "simple-pbt", "sobol", "tpe",
+                     "trial-conditions"]
     refused = {Path(p).stem: outcome for p, outcome in validated.items() if outcome != "valid"}
     assert sorted(refused) == ["distributed-lm", "multihost-lm"]
     assert all(outcome.startswith("ValidationError: ") for outcome in refused.values())
@@ -535,7 +535,9 @@ def test_examples_validate_or_are_refused_without_importing_jax(fresh_interprete
             "katib_tpu_torch.api.validation", "katib_tpu_torch.controller.suggestion",
             "katib_tpu_torch.suggest.sobol", "katib_tpu_torch.suggest.internal.sobol_engine",
             "katib_tpu_torch.suggest.bayesopt", "katib_tpu_torch.suggest.pbt",
-            "katib_tpu_torch.models.simple_pbt"} <= set(result["modules"])
+            "katib_tpu_torch.models.simple_pbt", "katib_tpu_torch.api.defaults",
+            "katib_tpu_torch.controller.conditions", "katib_tpu_torch.controller.executor",
+            "katib_tpu_torch.runtime.tailer", "katib_tpu_torch.runtime.tfevent"} <= set(result["modules"])
     assert result["after_validation"] == [] and result["after_imports"] == []
     assert port_run["imported"] == []
 
